@@ -9,15 +9,24 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
 3. holds each kernel against its plain PyTorch version on the card, and a
    tiny fp32 pipeline on the card (kernels) against the same on the CPU
    (plain versions, which the CPU tests hold to the JAX package);
-4. times each kernel (device time, torch.profiler) at the shapes one 512x512
-   request gives it (found by a census run), beside its plain version, a
-   library call and its bound;
+4. times each kernel (device time, ``scripts/timing.py::device_ms``) at the
+   shapes one 512x512 request gives it (found by a census run), beside its
+   plain version, a library call and its bound;
 5. drives the main path at SD1.5's full width with seeded random bf16
    weights: 20 timed CudaPipelineWorker.run_job requests (512x512, 4 LCM
    steps), one of them a repeat that must be byte-identical, and run_jobs
    batches of 8 whose row must match that spec's solo run; launch counts must
    show every kernel ran;
-6. prints the ``{"kernels": [...]}`` line, the main path's numbers, and last
+6. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
+   ``kernel_call`` at lanes 40 and 128, K6 ``flash_attention_packed3``) in
+   fp32 against their plain versions at the probes' full shapes, then runs
+   the three probe entry points of ``dreamlab_tpu_torch/scripts`` with their
+   launch counts reset. Each probe first holds every bf16 kernel variant it
+   times against the plain fp32 version on its own inputs (beyond one bf16
+   rounding of the output: ``scripts/timing.py::TOL_BF16``), then times them beside the plain
+   version and SDPA; the phase reads their errors and times, adds each
+   kernel's bound, and prints one ``{"probes": {...}}`` line;
+7. prints the ``{"kernels": [...]}`` line, the main path's numbers, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -43,8 +52,11 @@ from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
 from dreamlab_tpu_torch.models import layers
 from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
+from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
 from dreamlab_tpu_torch.pipeline import LCMPipeline
+from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
+from dreamlab_tpu_torch.scripts.timing import TOL_BF16, device_ms, max_err
 from dreamlab_tpu_torch.testing import random_bundle
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
@@ -77,34 +89,6 @@ def end_phase(name: str) -> None:
     if FAILURES:
         log(f"phase {name} failed: {FAILURES}")
         sys.exit(1)
-
-
-def kernel_times(prof) -> list:
-    """(device ms, launches, name) of every kernel one torch.profiler run saw."""
-    out = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and not e.key.startswith("aten::"):
-            out.append((us / 1e3, e.count, e.key))
-    return sorted(out, reverse=True)
-
-
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time per call of ``fn``: its kernels' own times summed under
-    torch.profiler after a warm-up call. Host launch gaps are excluded, so a
-    tiny kernel is charged its device time, not the launch rate of the host."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for ms, _, _ in kernel_times(prof)) / iters
 
 
 def bound_ms(ops: float, nbytes: float, dtype) -> tuple:
@@ -373,6 +357,22 @@ def main_path(worker, per_request) -> dict:
             "batch8_s": batch_s, "batch_row_max_pixel_delta": delta}
 
 
+def kernel_times(prof) -> list:
+    """(device ms, launches, name) of every kernel one torch.profiler run saw:
+    device-side entries only (host entries such as the profiler's own
+    "Activity Buffer Request" can carry a device time too)."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type == DeviceType.CUDA:
+            out.append((us / 1e3, e.count, e.key))
+    return sorted(out, reverse=True)
+
+
 def profile(run) -> dict:
     """Device time by kernel over one call of ``run`` (torch.profiler), and the
     device's busy share of the wall time (the profiler's own cost included)."""
@@ -390,6 +390,141 @@ def profile(run) -> dict:
             "busy_share": busy_ms / wall_ms if wall_ms else None,
             "kernel_launches": sum(n for _, n, _ in kernels),
             "top": [[name[:90], ms, n] for ms, n, name in kernels[:12]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the probes (K4, K5, K6) of dreamlab_tpu_torch/scripts
+# ---------------------------------------------------------------------------
+
+K5_LANES = (ab_attention_layout.LANES, ab_attention_layout.D)
+
+
+def attention_bound(b, n, m, h, d, dtype) -> tuple:
+    """Operations 4*B*H*N*M*D; bytes: q and o once, k and v once."""
+    elt = torch.finfo(dtype).bits // 8
+    return bound_ms(4.0 * b * h * n * m * d, elt * (2 * b * n * h * d + 2 * b * m * h * d), dtype)
+
+
+def self_attention_bound(shape, dtype) -> tuple:
+    b, n, h, d = shape
+    return attention_bound(b, n, n, h, d, dtype)
+
+
+def k5_inputs(dtype, lane):
+    """K5's pre-folded [B*H, N, lane] q, k, v at the layout probe's shape."""
+    lay = ab_attention_layout
+    return [lay.fold(randn((lay.B, lay.N, lay.H, lay.D), dtype, 20 + i), lane)
+            for i in range(3)]
+
+
+def check_probes_fp32() -> None:
+    """K4, K5 (both lanes) and K6 in fp32 against their plain versions on the
+    card at the probes' full shapes (the probes check bf16 themselves, every
+    variant they time; these launches are not counted)."""
+    dtype = torch.float32
+    cases = [("flash_4d", ab_transpose_free.flash_attention_4d, (b, n, h, d))
+             for b, n, h, d, _ in ab_transpose_free.SHAPES]
+    cases.append(("flash_packed3", ab_head_packing.flash_attention_packed3, ab_head_packing.SHAPE))
+    for name, fn, shape in cases:
+        q, k, v = (randn(shape, dtype, 30 + i) for i in range(3))
+        got = fn(q, k, v, scale=shape[-1] ** -0.5)
+        err = max_err(got, fg.flash_group_plain(q, k, v, shape[-1] ** -0.5))
+        log({"check": name, "dtype": str(dtype), "shape": list(shape), "max_abs_err": err})
+        expect(err <= TOL_FLASH[dtype], f"{name} {dtype} {list(shape)} err {err}")
+        del q, k, v, got
+    lane_d = ab_attention_layout.D
+    for lane in K5_LANES:
+        q, k, v = k5_inputs(dtype, lane)
+        scale = lane_d ** -0.5
+        got = ab_attention_layout.kernel_call(q, k, v, lane, scale=scale)
+        want = fa.attention_plain(*(x.unsqueeze(2) for x in (q, k, v)), scale).squeeze(2)
+        err = max_err(got, want)
+        pad = got[:, :, lane_d:].abs().max().item() if lane > lane_d else 0.0
+        log({"check": "flash_folded", "dtype": str(dtype), "lane": lane,
+             "shape": list(q.shape), "max_abs_err": err, "pad_lanes_max": pad})
+        expect(err <= TOL_FLASH[dtype], f"flash_folded {dtype} lane {lane} err {err}")
+        expect(pad == 0, f"flash_folded lane {lane}: pad lanes {pad}, expected 0")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+def reset_probe_counts() -> None:
+    fa.LAUNCHES = 0
+    fg.LAUNCHES = 0
+    ab_transpose_free.LAUNCHES = 0
+    ab_attention_layout.LAUNCHES = 0
+    ab_head_packing.LAUNCHES = 0
+
+
+def probe_counts() -> dict:
+    return {"flash_4d": ab_transpose_free.LAUNCHES,
+            "flash_folded": ab_attention_layout.LAUNCHES,
+            "flash_packed3": ab_head_packing.LAUNCHES,
+            "flash_group (K4 + K6)": fg.LAUNCHES, "flash (K1 beside them)": fa.LAUNCHES}
+
+
+def probes(errs) -> tuple:
+    """Phase 6. Returns (kernel entries for the kernels line, probes line)."""
+    t0 = time.perf_counter()
+    check_probes_fp32()
+    end_phase("probe checks")
+    reset_probe_counts()
+    runs = {"ab_transpose_free": ab_transpose_free.main(),
+            "ab_attention_layout": ab_attention_layout.main(),
+            "ab_head_packing": ab_head_packing.main()}
+    launches = probe_counts()
+    for probe, run in runs.items():
+        # bf16, every kernel variant the probe times, on the probe's own inputs
+        for case, c in run["checks"].items():
+            log({"check": f"{probe}/{case}", "dtype": "torch.bfloat16", **c,
+                 "beyond_rounding_limit": TOL_BF16})
+        expect(not run["failed"], f"{probe}: checks failed {run['failed']}")
+    for name in ("flash_4d", "flash_folded", "flash_packed3"):
+        expect(launches[name] > 0, f"the probes launched {name} no time")
+    end_phase("probes")
+
+    t4 = runs["ab_transpose_free"]
+    lay = runs["ab_attention_layout"]
+    hp = runs["ab_head_packing"]
+    errs["flash_4d"] = max(c["max_abs_err"] for case, c in t4["checks"].items()
+                           if case.endswith("/group"))
+    errs["flash_folded"] = max(lay["checks"][lane]["max_abs_err"] for lane in ("folded", "nopad"))
+    errs["flash_packed3"] = hp["checks"]["packed3"]["max_abs_err"]
+    bf16 = torch.bfloat16
+    # per probe run: one call at each shape the probe gives the kernel;
+    # K5 at lane 128 (the folded variant; lane 40 is in the probes line)
+    al = ab_attention_layout
+    k5_bound = lambda lane: attention_bound(al.B * al.H, al.N, al.N, 1, lane, bf16)
+    k4_bounds = [self_attention_bound(t["shape"], bf16) for t in t4["shapes"].values()]
+    rows = {
+        "flash_4d": (sum(t["group_ms"] for t in t4["shapes"].values()),
+                     sum(t["plain_ms"] for t in t4["shapes"].values()),
+                     sum(t["sdpa_ms"] for t in t4["shapes"].values()),
+                     (sum(b for b, _ in k4_bounds), k4_bounds[0][1])),
+        "flash_folded": (lay["folded_ms"], lay["xla_lane128_ms"], lay["sdpa_lane128_ms"],
+                         k5_bound(al.LANES)),
+        "flash_packed3": (hp["packed3_ms"], hp["plain_ms"], hp["sdpa_ms"],
+                          self_attention_bound(hp["shape"], bf16)),
+    }
+    sources = {
+        "flash_4d": ("dreamlab_tpu_torch/csrc/flash_group.cu", "scripts/ab_transpose_free.py:46"),
+        "flash_folded": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
+                         "scripts/ab_attention_layout.py:61"),
+        "flash_packed3": ("dreamlab_tpu_torch/csrc/flash_group.cu",
+                          "scripts/ab_head_packing.py:134"),
+    }
+    entries = []
+    for name, (ms, plain_ms, library_ms, (bms, by)) in rows.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            # K5 at lane 128 computes 3.2x the work of d = 40: both bounds
+            **({"bound_ms_d40": k5_bound(al.D)[0]}
+               if name == "flash_folded" else {})})
+    line = {"probes": {**runs, "launches": launches, "probes_s": time.perf_counter() - t0}}
+    return entries, line
 
 
 def main() -> int:
@@ -450,6 +585,11 @@ def main() -> int:
                    seed=5)
     log({"profile_batch1": profile(lambda: worker.run_job(spec))})
     log({"profile_batch8": profile(lambda: worker.run_jobs([spec] * 8))})
+    del worker, pipe
+    torch.cuda.empty_cache()
+
+    probe_entries, probe_line = probes(errs)
+    log(probe_line)
 
     sources = {
         "flash": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
@@ -470,7 +610,7 @@ def main() -> int:
             else "bytes",
             "library_ms": r["library_ms"],
         })
-    log({"kernels": kernels})
+    log({"kernels": kernels + probe_entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0

@@ -16,10 +16,13 @@
 // What this design does about it, and what it does not do yet: none of the
 // TPU layout choices carry over (no head packing, no v5e block table, no
 // fold transposes): the kernel reads [B, N, H, D] in place through strides.
-// One block of 128 threads owns (b, h, 128 queries); each thread owns one
+// One block of BQ threads owns (b, h, BQ queries); each thread owns one
 // query row, keeps q and the accumulator in registers, and walks all keys in
-// shared-memory tiles of kBlockK keys (the loop replaces the Pallas grid's
-// sequential key axis). Head dims are padded in registers to the next
+// shared-memory tiles of BK keys (the loop replaces the Pallas grid's
+// sequential key axis). The main path runs BQ = 128 with BK = 32 (16 above
+// d = 80); the tile sweep of dreamlab_tpu_torch/scripts/ab_head_packing.py
+// also gets BQ in {64, 128} x BK in {16, 32, 64}, compiled for bf16 at
+// d <= 40 only. Head dims are padded in registers to the next
 // compiled width (40, 64 and 80 run unpadded). All products are scalar fp32
 // FMAs fed by broadcast shared-memory reads: simple and exact, but it runs on
 // the 67 TFLOP/s fp32 units, not the bf16 tensor cores. A tensor-core
@@ -29,12 +32,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // one query row per thread
+constexpr int kDefaultBlockQ = 128;  // query rows (= threads) per block
 constexpr float kNegInf = -1e30f;  // finite mask value, as in the Pallas kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int DP, int BK>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP, int BQ, int BK>
+__global__ void __launch_bounds__(BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  int n, int m, int h, int d,
@@ -47,7 +50,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z;
   const int hh = blockIdx.y;
-  const int row = blockIdx.x * kThreads + threadIdx.x;
+  const int row = blockIdx.x * BQ + threadIdx.x;
   const bool active = row < n;
 
   // q pre-scaled into the log2 domain: p = exp2(s - m) == exp(scale*qk - m')
@@ -72,7 +75,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * v_sb + hh * v_sh;
   for (int j0 = 0; j0 < m; j0 += BK) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < BK * DP; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < BK * DP; idx += BQ) {
       const int j = idx / DP;
       const int c = idx - j * DP;
       const int key = j0 + j;
@@ -136,15 +139,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP>
+// fewer keys per tile at wide heads keeps q, acc and the scores in registers
+template <int DP>
+constexpr int default_block_k() { return DP > 80 ? 16 : 32; }
+
+template <typename T, int DP, int BQ = kDefaultBlockQ, int BK = default_block_k<DP>()>
 void launch(const void* q, const void* k, const void* v, void* o,
             int b, int n, int m, int h, int d,
             const int64_t* qs, const int64_t* ks, const int64_t* vs,
             float scale, cudaStream_t stream) {
-  // fewer keys per tile at wide heads keeps q, acc and the scores in registers
-  constexpr int BK = DP > 80 ? 16 : 32;
-  const dim3 grid((n + kThreads - 1) / kThreads, h, b);
-  flash_fwd_kernel<T, DP, BK><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid((n + BQ - 1) / BQ, h, b);
+  flash_fwd_kernel<T, DP, BQ, BK><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n, m, h, d,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
@@ -173,13 +178,36 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* o,
   return -1;
 }
 
+// The tile sweep's instances: bf16, head dims up to 40 (zero-padded in
+// registers to 40, which leaves every sum unchanged).
+int dispatch_sweep(const void* q, const void* k, const void* v, void* o,
+                   int b, int n, int m, int h, int d, int block_q, int block_k,
+                   const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                   float scale, cudaStream_t stream) {
+  if (d > 40) return -1;
+#define DL_SWEEP_CASE(BQ, BK)                                                \
+  if (block_q == BQ && block_k == BK) {                                      \
+    launch<__nv_bfloat16, 40, BQ, BK>(q, k, v, o, b, n, m, h, d, qs, ks, vs, \
+                                      scale, stream);                        \
+    return 0;                                                                \
+  }
+  DL_SWEEP_CASE(64, 16)
+  DL_SWEEP_CASE(64, 32)
+  DL_SWEEP_CASE(64, 64)
+  DL_SWEEP_CASE(128, 16)
+  DL_SWEEP_CASE(128, 64)
+#undef DL_SWEEP_CASE
+  return -1;
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch, or -1 for an unsupported
-// dtype / head dim (the Python wrapper checks both before calling).
+// dtype / head dim / tile (the Python wrapper checks all three before
+// calling). block_q = block_k = 0 selects the default tiles.
 extern "C" int dl_flash_attention(
     int device, const void* q, const void* k, const void* v, void* o,
-    int dtype, int b, int n, int m, int h, int d,
+    int dtype, int b, int n, int m, int h, int d, int block_q, int block_k,
     int64_t q_sb, int64_t q_sn, int64_t q_sh,
     int64_t k_sb, int64_t k_sm, int64_t k_sh,
     int64_t v_sb, int64_t v_sm, int64_t v_sh,
@@ -191,7 +219,11 @@ extern "C" int dl_flash_attention(
   const int64_t vs[3] = {v_sb, v_sm, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = -1;
-  if (dtype == kFloat32) {
+  if (block_q != 0 || block_k != 0) {
+    if (dtype == kBFloat16) {
+      rc = dispatch_sweep(q, k, v, o, b, n, m, h, d, block_q, block_k, qs, ks, vs, scale, st);
+    }
+  } else if (dtype == kFloat32) {
     rc = dispatch_head_dim<float>(q, k, v, o, b, n, m, h, d, qs, ks, vs, scale, st);
   } else if (dtype == kBFloat16) {
     rc = dispatch_head_dim<__nv_bfloat16>(q, k, v, o, b, n, m, h, d, qs, ks, vs, scale, st);

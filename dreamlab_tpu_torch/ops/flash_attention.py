@@ -11,6 +11,10 @@ anything the kernel does not take; for CPU tensors it computes
 ``attention_plain``, which mirrors ``dreamlab_tpu/ops/attention.py::
 _xla_attention`` (fp32 logits and softmax, probabilities cast to v's dtype,
 fp32 PV) and is what the tests hold against the JAX package.
+
+``pack_geometry`` keeps the JAX package's head-packing rule for the probes
+of ``dreamlab_tpu_torch/scripts``, which group lane-adjacent heads
+(``ops/flash_group.py``); this kernel does not pack.
 """
 
 from __future__ import annotations
@@ -23,14 +27,47 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 128
+LANES = 128  # the TPU's lane width, the budget of pack_geometry
+
+# the main path's tiles: 128 queries (one per thread) per block, keys in
+# tiles of 32, or 16 above d = 80; the probes' tile sweep adds these, compiled
+# for bf16 at d <= 40 only
+DEFAULT_BLOCK_Q = 128
+SWEEP_BLOCK_Q = (64, 128)
+SWEEP_BLOCK_K = (16, 32, 64)
+SWEEP_MAX_HEAD_DIM = 40
 
 # kernel launches since the last reset (the main path's proof that it ran)
 LAUNCHES = 0
 
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
     + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
 )
+
+
+def pack_geometry(h: int, d: int):
+    """(pack, lane width L) of the JAX package's ``_pack_geometry``: pack is
+    the largest divisor of h within floor(128 / d), capped at 8, for d a
+    multiple of 8 and at most 64; otherwise one head, (1, d) when d % 8 == 0
+    and (1, 128) else."""
+    if d % 8 == 0 and d <= LANES // 2 and h > 0:
+        for cand in range(min(LANES // d, h, 8), 1, -1):
+            if h % cand == 0:
+                return cand, cand * d
+    return 1, d if d % 8 == 0 else LANES
+
+
+def default_block_k(d: int) -> int:
+    return 16 if d > 80 else 32
+
+
+def _tiles(d: int, block_q: int, block_k: int):
+    """The (block_q, block_k) a call asks for, 0 meaning the default tile."""
+    if block_q not in (0, *SWEEP_BLOCK_Q) or block_k not in (0, *SWEEP_BLOCK_K):
+        raise ValueError(f"tiles block_q={block_q}, block_k={block_k}: block_q must be "
+                         f"0 or one of {SWEEP_BLOCK_Q}, block_k 0 or one of {SWEEP_BLOCK_K}")
+    return block_q or DEFAULT_BLOCK_Q, block_k or default_block_k(d)
 
 
 def attention_plain(q, k, v, scale: float):
@@ -65,30 +102,50 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
-def flash_attention(q, k, v, *, scale: Optional[float] = None):
-    """Non-causal multi-head attention, [B, N, H, D] x [B, M, H, D] -> [B, N, H, D].
+def launch(q, k, v, *, scale: float, block_q: int = 0, block_k: int = 0):
+    """Run the kernel on CUDA tensors [B, N, H, D] x [B, M, H, D]; count nothing.
 
-    CUDA tensors run the kernel (output in q's dtype, contiguous); CPU
-    tensors run ``attention_plain``.
+    ``flash_attention`` and the layout probe ``scripts/ab_attention_layout.py``
+    call this and keep their own launch counts. Raises on anything the
+    kernel does not take, tiles included.
     """
-    global LAUNCHES
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
     _check_inputs(q, k, v)
     b, n, h, d = q.shape
     m = k.shape[1]
+    tiles = _tiles(d, block_q, block_k)
+    if tiles == (DEFAULT_BLOCK_Q, default_block_k(d)):
+        tiles = (0, 0)
+    elif q.dtype != torch.bfloat16 or d > SWEEP_MAX_HEAD_DIM:
+        raise ValueError(f"tiles {tiles} are compiled for bfloat16 at d <= "
+                         f"{SWEEP_MAX_HEAD_DIM} only, got {q.dtype} at d = {d}")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     fn = _build.kernel("dl_flash_attention", _ARGTYPES)
     rc = fn(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), _build.dtype_code(q), b, n, m, h, d,
+        out.data_ptr(), _build.dtype_code(q), b, n, m, h, d, *tiles,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         float(scale), _build.stream_of(q),
     )
     _build.check(rc, "dl_flash_attention")
+    return out
+
+
+def flash_attention(q, k, v, *, scale: Optional[float] = None, block_q: int = 0,
+                    block_k: int = 0):
+    """Non-causal multi-head attention, [B, N, H, D] x [B, M, H, D] -> [B, N, H, D].
+
+    CUDA tensors run the kernel (output in q's dtype, contiguous); CPU
+    tensors run ``attention_plain``. block_q / block_k = 0 take the default
+    tiles; other values are the probes' tile sweep (see SWEEP_BLOCK_Q/K).
+    """
+    global LAUNCHES
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        _tiles(q.shape[-1], block_q, block_k)
+        return attention_plain(q, k, v, scale)
+    out = launch(q, k, v, scale=scale, block_q=block_q, block_k=block_k)
     LAUNCHES += 1
     return out

@@ -18,7 +18,9 @@ import torch
 
 from dreamlab_tpu_torch.ops import _build
 from dreamlab_tpu_torch.ops import flash_attention as fa
+from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
+from dreamlab_tpu_torch.scripts import ab_attention_layout as layout
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -44,6 +46,7 @@ def test_build_reports_registers(cuda):
     log = _build.build_log()
     print(log)
     assert "flash_fwd_kernel" in log and "gn_apply_kernel" in log
+    assert "flash_group_kernel" in log
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -67,6 +70,79 @@ def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
     want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
     err = (got.float() - want).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("block_q,block_k", [(64, 16), (64, 32), (64, 64), (128, 16),
+                                             (128, 64)])
+@pytest.mark.parametrize("d", [16, 40])
+def test_flash_tile_sweep_matches_plain(cuda, block_q, block_k, d):
+    b, n, m, h = 1, 300, 77, 2  # ragged query and key edges
+    q, k, v = (_randn(s, torch.bfloat16, cuda, i) for i, s in enumerate(
+        [(b, n, h, d), (b, m, h, d), (b, m, h, d)]))
+    got = fa.flash_attention(q, k, v, block_q=block_q, block_k=block_k)
+    want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+
+
+def test_flash_tile_sweep_is_bf16_at_narrow_heads_only(cuda):
+    q = torch.zeros((1, 128, 2, 40), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q, block_q=64)
+    q = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q, block_k=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,m,h,d,pack", [
+    (1, 256, 256, 6, 40, 3),
+    (2, 200, 77, 6, 40, 3),    # ragged query edge, masked keys
+    (1, 256, 1000, 4, 64, 2),  # masked edge across several key tiles
+    (1, 256, 300, 8, 40, 2),
+    (2, 130, 50, 6, 16, 3),
+    (1, 128, 33, 2, 16, 2),
+    (1, 128, 100, 4, 24, 2),   # zero-padded in registers to 40
+])
+def test_flash_group_matches_plain(cuda, dtype, b, n, m, h, d, pack):
+    q = _randn((b, n, h, d), dtype, cuda, 0)
+    k = _randn((b, m, h, d), dtype, cuda, 1)
+    v = _randn((b, m, h, d), dtype, cuda, 2)
+    before = fg.LAUNCHES
+    got = fg.flash_group(q, k, v, pack=pack)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    err = (got.float() - want).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+def test_flash_group_reads_token_strided_views(cuda):
+    """q/k/v as views into one packed projection output: the group's lanes
+    stay contiguous, only the token stride grows."""
+    b, n, h, d = 2, 256, 6, 40
+    qkv = _randn((b, n, 3, h * d), torch.bfloat16, cuda, 3)
+    q, k, v = (qkv[:, :, i].reshape(b, n, h, d) for i in range(3))
+    got = fg.flash_group(q, k, v, pack=3)
+    want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    with pytest.raises(ValueError):  # heads not lane-adjacent
+        fg.flash_group(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, pack=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("lane", [40, 128])
+def test_kernel_call_matches_plain(cuda, dtype, lane):
+    x = [_randn((2, 300, 4, 40), dtype, cuda, i) for i in range(3)]
+    q, k, v = (layout.fold(t, lane) for t in x)
+    before = layout.LAUNCHES
+    got = layout.kernel_call(q, k, v, lane, scale=40 ** -0.5)
+    torch.cuda.synchronize()
+    assert layout.LAUNCHES == before + 1
+    want = fa.attention_plain(*(t.float().unsqueeze(2) for t in (q, k, v)),
+                              40 ** -0.5).squeeze(2)
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    assert not got[:, :, 40:].any()
 
 
 def test_flash_reads_strided_views(cuda):

@@ -15,9 +15,14 @@ def test_importing_every_module_loads_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         dreamlab_tpu_torch.__path__, "dreamlab_tpu_torch."))
     assert "dreamlab_tpu_torch.engine.cuda_worker" in mods
+    assert "dreamlab_tpu_torch.scripts.ab_attention_layout" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        # importing a probe runs no work: no kernel wrapper has launched
+        "counts = {m: sys.modules[m].LAUNCHES for m in sys.modules"
+        " if m.startswith('dreamlab_tpu_torch.') and hasattr(sys.modules[m], 'LAUNCHES')}\n"
+        "assert len(counts) >= 5 and not any(counts.values()), counts\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'dreamlab_tpu' or m.startswith('dreamlab_tpu.'))\n"
