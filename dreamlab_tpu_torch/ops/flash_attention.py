@@ -4,7 +4,10 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``dreamlab_tpu/ops/flash_attention.py::_flash_kernel``. It reads
 ``[B, N, H, D]`` tensors in place through their strides and masks the ragged
 key edge itself, so the TPU wrapper's head packing, block table and fold
-transposes have no counterpart here.
+transposes have no counterpart here. bf16 runs both products on the tensor
+cores (``mma.sync``, P rounded to bf16 before the PV product as the Pallas
+kernel rounds it); fp32 runs a scalar kernel, since the tensor cores would
+take fp32 as TF32.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; for CPU tensors it computes
@@ -29,13 +32,15 @@ from . import _build
 MAX_HEAD_DIM = 128
 LANES = 128  # the TPU's lane width, the budget of pack_geometry
 
-# the main path's tiles: 128 queries (one per thread) per block, keys in
-# tiles of 32, or 16 above d = 80; the probes' tile sweep adds these, compiled
-# for bf16 at d <= 40 only
+# the main path's tiles (csrc/flash_attention.cu::kBlockQ, kBlockK): 128
+# queries (8 warps of 16 rows) per block, keys in tiles of 64. The probes'
+# tile sweep adds these, compiled for bf16 at d <= 48 (the d = 40 head's
+# mma depth) only; each key tile is a multiple of the mma's 16 keys.
 DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 64
 SWEEP_BLOCK_Q = (64, 128)
 SWEEP_BLOCK_K = (16, 32, 64)
-SWEEP_MAX_HEAD_DIM = 40
+SWEEP_MAX_HEAD_DIM = 48
 
 # kernel launches since the last reset (the main path's proof that it ran)
 LAUNCHES = 0
@@ -58,16 +63,12 @@ def pack_geometry(h: int, d: int):
     return 1, d if d % 8 == 0 else LANES
 
 
-def default_block_k(d: int) -> int:
-    return 16 if d > 80 else 32
-
-
-def _tiles(d: int, block_q: int, block_k: int):
+def _tiles(block_q: int, block_k: int):
     """The (block_q, block_k) a call asks for, 0 meaning the default tile."""
     if block_q not in (0, *SWEEP_BLOCK_Q) or block_k not in (0, *SWEEP_BLOCK_K):
         raise ValueError(f"tiles block_q={block_q}, block_k={block_k}: block_q must be "
                          f"0 or one of {SWEEP_BLOCK_Q}, block_k 0 or one of {SWEEP_BLOCK_K}")
-    return block_q or DEFAULT_BLOCK_Q, block_k or default_block_k(d)
+    return block_q or DEFAULT_BLOCK_Q, block_k or DEFAULT_BLOCK_K
 
 
 def attention_plain(q, k, v, scale: float):
@@ -112,8 +113,8 @@ def launch(q, k, v, *, scale: float, block_q: int = 0, block_k: int = 0):
     _check_inputs(q, k, v)
     b, n, h, d = q.shape
     m = k.shape[1]
-    tiles = _tiles(d, block_q, block_k)
-    if tiles == (DEFAULT_BLOCK_Q, default_block_k(d)):
+    tiles = _tiles(block_q, block_k)
+    if tiles == (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K):
         tiles = (0, 0)
     elif q.dtype != torch.bfloat16 or d > SWEEP_MAX_HEAD_DIM:
         raise ValueError(f"tiles {tiles} are compiled for bfloat16 at d <= "
@@ -144,7 +145,7 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, block_q: int = 0,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        _tiles(q.shape[-1], block_q, block_k)
+        _tiles(block_q, block_k)
         return attention_plain(q, k, v, scale)
     out = launch(q, k, v, scale=scale, block_q=block_q, block_k=block_k)
     LAUNCHES += 1

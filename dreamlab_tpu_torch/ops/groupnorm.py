@@ -3,40 +3,61 @@
 The kernels (``csrc/groupnorm.cu``) replace the two Pallas TPU kernels of
 ``dreamlab_tpu/ops/groupnorm.py::fused_group_norm_silu``:
 
-- ``group_norm_coeffs`` (K2, ``_stats_kernel``): per-(B, C) coefficients
-  ``a = gamma * rsqrt(var + eps)`` and ``b = beta - mean * a`` with fp32
-  group statistics. On the card it launches a per-tile statistics kernel and
-  a tiny finalize kernel (the group combine the JAX package left to XLA).
+- ``fused_group_norm_silu`` (K2 + K3, the main path): one launch of the
+  cluster kernel per call. A thread block cluster owns one (batch row,
+  channel slab); its blocks share their group statistics through
+  distributed shared memory, fold gamma/beta into a, b, and apply
+  ``y = x * a + b`` (+SiLU) to their own rows.
+- ``group_norm_coeffs`` (K2, ``_stats_kernel``): the same kernel with the
+  apply phase off, writing the fp32 per-(B, C) coefficients
+  ``a = gamma * rsqrt(var + eps)`` and ``b = beta - mean * a``.
 - ``scale_shift_silu`` (K3, ``_apply_kernel``): ``y = x * a + b`` then
-  optional SiLU, in x's dtype.
+  optional SiLU for given coefficients, in x's dtype.
 
-``fused_group_norm_silu`` composes the two. Each wrapper launches its kernel
-for CUDA tensors and raises on anything the kernel does not take; for CPU
-tensors it computes its plain version. ``group_norm_plain`` mirrors
-``dreamlab_tpu/models/layers.py::group_norm`` (+SiLU): the tests hold it to
-the JAX package, and the card holds the kernels to it.
+Each wrapper launches its kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors it computes its plain version.
+``group_norm_plain`` mirrors ``dreamlab_tpu/models/layers.py::group_norm``
+(+SiLU): the tests hold it to the JAX package, and the card holds the
+kernels to it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
 
-MAX_CHANNELS = 4096  # the stats kernel's shared memory holds 2 x C floats per row group
-_THREADS = 256  # csrc/groupnorm.cu::kThreads
-_SMS = 132  # H100 SXM streaming multiprocessors: the stats grid aims at 2 blocks each
+# the widest slab the cluster kernel takes: 4096 fp32 channels are 1024
+# vectors, one per thread of its largest block (the UNet's widest input, the
+# skip concat, has 2560)
+MAX_CHANNELS = 4096
+_APPLY_THREADS = 256  # csrc/groupnorm.cu::kApplyThreads
+_SMS = 132  # H100 SXM streaming multiprocessors: the grid aims to cover them at batch 1
+MAX_CLUSTER = 16  # above 8 clusters are "non-portable": Hopper allows 16
+MIN_SLAB_BYTES = 64  # a slab's row is at least two 32-byte sectors
+MIN_BLOCK_ROWS = 16  # a cluster grows only while each block keeps this many rows
+# 16-byte vectors per block up to which it runs 128 threads (small blocks:
+# more of them fit on an SM, so a cluster of 16 is placed at once), and from
+# which it runs 1024 (the VAE's large rows); 256 between
+SMALL_BLOCK_WORK = 4 * 1024
+WIDE_BLOCK_WORK = 16 * 1024
+WIDE_CLUSTERS = 4  # 16-block clusters of 1024 threads per batch row, at most
 
-# kernel launches since the last reset (the main path's proof that it ran)
+# kernel launches since the last reset (the main path's proof that it ran).
+# LAUNCHES counts every kernel this module launches: one per call of any
+# wrapper. STATS_LAUNCHES counts the launches that computed the statistics
+# (K2's work: the cluster kernel), APPLY_LAUNCHES those that wrote
+# y = x*a + b (K3's work: the cluster kernel with its apply phase, or the
+# apply kernel). A fused call is one launch and counts once in each.
+LAUNCHES = 0
 STATS_LAUNCHES = 0
 APPLY_LAUNCHES = 0
 
-_STATS_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p]
-_FINALIZE_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_void_p]
+_CLUSTER_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _APPLY_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
@@ -117,41 +138,82 @@ def _check_param(p, x, name: str) -> None:
                          f"{x.dtype} tensors on {x.device}")
 
 
-def group_norm_coeffs(x, scale, bias, *, groups: int, eps: float = 1e-5):
-    """K2: fp32 [B, C] coefficients a, b with GroupNorm(x) == x*a + b."""
-    global STATS_LAUNCHES
-    if x.device.type == "cpu":
-        return group_norm_coeffs_plain(x, scale, bias, groups=groups, eps=eps)
-    _check_x(x, "group_norm_coeffs")
-    _check_param(scale, x, "group_norm_coeffs")
-    _check_param(bias, x, "group_norm_coeffs")
+def geometry(hw: int, c: int, groups: int, elt: int):
+    """(slab, cluster, rows, threads) of one cluster-kernel call.
+
+    slab: the narrowest run of whole groups that is whole 16-byte vectors,
+    at least ``MIN_SLAB_BYTES`` wide and dividing C (C itself if none is).
+    cluster: blocks per (batch row, slab), doubled while the slabs' blocks
+    cover fewer than the card's SMs and each block keeps ``MIN_BLOCK_ROWS``
+    rows. rows: H·W rows per block. threads: 128, 256 or 1024 by the
+    vectors a block streams, and never fewer than one per vector of a slab
+    row.
+    A function of (H·W, C, groups) and the element size only, never of the
+    batch: a row's statistics are summed in the same order alone or in a
+    batch (batching never changes a row).
+    """
+    cg = c // groups
+    vec = 16 // elt
+    unit = cg * vec // math.gcd(cg, vec)
+    slab = next((s for s in range(unit, c + 1, unit)
+                 if c % s == 0 and s * elt >= MIN_SLAB_BYTES), c)
+    nslabs = c // slab
+    cluster = 1
+    while (cluster < MAX_CLUSTER and nslabs * cluster < _SMS
+           and hw >= 2 * cluster * MIN_BLOCK_ROWS):
+        cluster *= 2
+    nvec = slab // vec
+    work = -(-hw // cluster) * nvec
+    threads = 128 if work <= SMALL_BLOCK_WORK else 256 if work < WIDE_BLOCK_WORK else 1024
+    if threads == 1024 and cluster == MAX_CLUSTER and nslabs > WIDE_CLUSTERS:
+        # a 1024-thread block fills an SM, so a 16-block cluster takes a whole
+        # GPC: more than a few of them run in two waves
+        cluster //= 2
+    threads = max(threads, -(-nvec // 32) * 32)
+    return slab, cluster, -(-hw // cluster), threads
+
+
+def _launch_cluster(x, scale, bias, groups: int, eps: float, *, silu: bool, apply: bool,
+                    name: str):
+    """One launch of the cluster kernel: y (apply) or the coefficients a, b."""
+    global LAUNCHES, STATS_LAUNCHES, APPLY_LAUNCHES
+    _check_x(x, name)
+    _check_param(scale, x, name)
+    _check_param(bias, x, name)
     b, c = x.shape[0], x.shape[-1]
     if c % groups:
         raise ValueError(f"channels {c} not divisible by groups {groups}")
     hw = x.numel() // (b * c)
-    # enough blocks per batch row to fill the card twice over at batch 1. The
-    # split depends on hw only, never on b: a row's statistics are then summed
-    # in the same order alone or in a batch (batching never changes a row).
-    tile_rows = -(-hw // min(hw, 2 * _SMS))
-    ntiles = -(-hw // tile_rows)
-    stats = torch.empty((b, ntiles, 2, c), dtype=torch.float32, device=x.device)
-    a = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    shift = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    dev, code, stream = x.device.index or 0, _build.dtype_code(x), _build.stream_of(x)
-    rc = _build.kernel("dl_gn_stats", _STATS_ARGS)(
-        dev, x.data_ptr(), stats.data_ptr(), code, b, hw, c, tile_rows, ntiles, stream)
-    _build.check(rc, "dl_gn_stats")
-    rc = _build.kernel("dl_gn_finalize", _FINALIZE_ARGS)(
-        dev, stats.data_ptr(), scale.data_ptr(), bias.data_ptr(), a.data_ptr(),
-        shift.data_ptr(), code, b, hw, c, groups, ntiles, tile_rows, float(eps), stream)
-    _build.check(rc, "dl_gn_finalize")
+    slab, cluster, rows, threads = geometry(hw, c, groups, x.element_size())
+    if apply:
+        y, a, shift = torch.empty_like(x), None, None
+    else:
+        y = None
+        a = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        shift = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _build.kernel("dl_gn_cluster", _CLUSTER_ARGS)(
+        x.device.index or 0, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), ptr(y),
+        ptr(a), ptr(shift), _build.dtype_code(x), b, hw, c, groups, slab, cluster, rows,
+        threads, float(eps), int(silu), int(apply), _build.stream_of(x))
+    _build.check(rc, "dl_gn_cluster")
+    LAUNCHES += 1
     STATS_LAUNCHES += 1
-    return a, shift
+    APPLY_LAUNCHES += int(apply)
+    return y if apply else (a, shift)
+
+
+def group_norm_coeffs(x, scale, bias, *, groups: int, eps: float = 1e-5):
+    """K2: fp32 [B, C] coefficients a, b with GroupNorm(x) == x*a + b."""
+    if x.device.type == "cpu":
+        return group_norm_coeffs_plain(x, scale, bias, groups=groups, eps=eps)
+    return _launch_cluster(x, scale, bias, groups, eps, silu=False, apply=False,
+                           name="group_norm_coeffs")
 
 
 def scale_shift_silu(x, a, b, *, silu: bool = True):
     """K3: y = x*a + b per (batch, channel), optional SiLU, in x's dtype."""
-    global APPLY_LAUNCHES
+    global LAUNCHES, APPLY_LAUNCHES
     if x.device.type == "cpu":
         return scale_shift_silu_plain(x, a, b, silu=silu)
     _check_x(x, "scale_shift_silu")
@@ -164,12 +226,13 @@ def scale_shift_silu(x, a, b, *, silu: bool = True):
     hw = x.numel() // (bsz * c)
     vec = 16 // x.element_size()
     nvec = hw * c // vec
-    blocks = max(1, min(-(-nvec // _THREADS), (16 * _SMS) // bsz))
+    blocks = max(1, min(-(-nvec // _APPLY_THREADS), (16 * _SMS) // bsz))
     y = torch.empty_like(x)
     rc = _build.kernel("dl_gn_apply", _APPLY_ARGS)(
         x.device.index or 0, x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
         _build.dtype_code(x), bsz, hw, c, int(silu), blocks, _build.stream_of(x))
     _build.check(rc, "dl_gn_apply")
+    LAUNCHES += 1
     APPLY_LAUNCHES += 1
     return y
 
@@ -178,9 +241,10 @@ def fused_group_norm_silu(x, scale, bias, *, groups: int, eps: float = 1e-5,
                           silu: bool = True):
     """GroupNorm over the channel axis of [B, ..., C] (+SiLU), fp32 statistics.
 
-    CUDA tensors run K2 then K3; CPU tensors run ``group_norm_plain``.
+    CUDA tensors run one launch of the cluster kernel (statistics and apply);
+    CPU tensors run ``group_norm_plain``.
     """
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, groups=groups, eps=eps, silu=silu)
-    a, b = group_norm_coeffs(x, scale, bias, groups=groups, eps=eps)
-    return scale_shift_silu(x, a, b, silu=silu)
+    return _launch_cluster(x, scale, bias, groups, eps, silu=silu, apply=True,
+                           name="fused_group_norm_silu")

@@ -16,8 +16,8 @@ Port of ``scripts/ab_head_packing.py``, all three parts:
    checked against the plain fp32 version on its own inputs before any is
    timed.
 
-Times are device time under torch.profiler (``scripts/timing.py``), the
-way ``chip_smoke.py`` times. Run on the card:
+Times are device time from CUDA events (``scripts/timing.py``), the way
+``chip_smoke.py`` times. Run on the card:
 ``python -m dreamlab_tpu_torch.scripts.ab_head_packing``.
 """
 
@@ -31,8 +31,8 @@ import torch.nn.functional as F
 
 from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
-from dreamlab_tpu_torch.scripts.timing import (bf16_check, compare, randn, report_checks,
-                                               require_cuda)
+from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, compare,
+                                               randn, report_checks, require_cuda)
 
 SHAPE = (8, 4096, 6, 40)  # (B, N, H, D); H % 3 == 0 for the packed kernel
 
@@ -93,13 +93,15 @@ def main(iters: int = 10) -> dict:
                "packed3": lambda: flash_attention_packed3(q, k, v, scale=scale)}
     for bq in fa.SWEEP_BLOCK_Q:
         for bk in fa.SWEEP_BLOCK_K:
-            if (bq, bk) != (fa.DEFAULT_BLOCK_Q, fa.default_block_k(d)):
+            if (bq, bk) != (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K):
                 kernels[f"bq{bq}_bk{bk}"] = lambda bq=bq, bk=bk: fa.flash_attention(
                     q, k, v, scale=scale, block_q=bq, block_k=bk)
     kernels["one_head_d128"] = lambda: fa.flash_attention(q8, k8, v8, scale=scale)
     ref = fa.attention_plain(q.float(), k.float(), v.float(), scale)
     ref8 = fa.attention_plain(q8.float(), k8.float(), v8.float(), scale)
-    errs = {name: bf16_check(fn(), ref8 if name == "one_head_d128" else ref)
+    # the head-group kernel computes in fp32; the one-head kernel rounds P
+    errs = {name: bf16_check(fn(), ref8 if name == "one_head_d128" else ref,
+                             TOL_BF16 if name == "packed3" else TOL_BF16_P)
             for name, fn in kernels.items()}
     del ref, ref8
     print("against the plain fp32 version (bf16 inputs):", flush=True)
@@ -121,7 +123,7 @@ def main(iters: int = 10) -> dict:
     print(f"  true d=128 / d=40: x{ms['one_head_d128'] / ms['one_head']:.2f} "
           "(what padding 40 lanes to 128 would cost)", flush=True)
     sweep = {name: t for name, t in ms.items() if name.startswith("bq")}
-    sweep[f"bq{fa.DEFAULT_BLOCK_Q}_bk{fa.default_block_k(d)}"] = ms["one_head"]
+    sweep[f"bq{fa.DEFAULT_BLOCK_Q}_bk{fa.DEFAULT_BLOCK_K}"] = ms["one_head"]
     return {"shape": list(SHAPE), "matmul_floors_ms": floors, "checks": errs,
             "failed": [], "one_head_ms": ms["one_head"], "packed3_ms": ms["packed3"],
             "tile_sweep_ms": sweep, "plain_ms": ms["plain"], "sdpa_ms": ms["sdpa"],

@@ -14,7 +14,9 @@ lost some or all of their kernels, which read as a shorter time.)
 
 Each probe holds every kernel variant it times against the plain fp32
 version on the same inputs first (``bf16_check``), and times nothing if one
-is off by more than a bf16 rounding of the output and ``TOL_BF16``.
+is off by more than a bf16 rounding of the output and its limit:
+``TOL_BF16`` for kernels that compute in fp32 and round once,
+``TOL_BF16_P`` for the tensor-core flash kernel, which rounds P too.
 """
 
 from __future__ import annotations
@@ -40,31 +42,44 @@ MAX_QUEUE_S = 0.04  # host time to queue the timed calls, within the spin
 BF16_ROUNDING = 2.0 ** -8
 TOL_BF16 = 1e-4
 
+# The tensor-core flash kernel (K1, and K5 on its folded view) rounds the
+# probabilities P to bf16 before the PV product, as the Pallas kernel does
+# (``p.astype(v.dtype)``), while the plain version keeps them fp32. A CPU
+# emulation of that arithmetic at N = M = 4096 with randn inputs (64-key
+# tiles, P rounded to bf16, fp32 sums; tests/test_torch_probes.py) leaves
+# 1.8e-4 (d = 40), 1.7e-4 (d = 80) and 6.1e-4 (d = 128 at the d = 40 scale)
+# beyond one rounding of the output, more than TOL_BF16; in the same
+# arithmetic one dropped key of 4096 leaves 1.3e-2 to 1.3e-1 and a scale 1 %
+# off 5.1e-3 to 4.3e-2. TOL_BF16_P passes the right arithmetic by 3.2x or more
+# and refuses each of those faults by 2.5x or more.
+TOL_BF16_P = 2e-3
+
 
 def max_err(got, want) -> float:
     """Largest absolute difference, in fp32."""
     return (got.float() - want.float()).abs().max().item()
 
 
-def bf16_check(got, want) -> dict:
+def bf16_check(got, want, limit: float = TOL_BF16) -> dict:
     """``got``'s largest error against ``want``, ``want``'s largest magnitude,
-    and the largest error beyond one bf16 rounding of ``want`` (what
-    TOL_BF16 bounds)."""
+    the largest error beyond one bf16 rounding of ``want``, and the
+    ``limit`` that error is held to."""
     want = want.float()
     diff = (got.float() - want).abs()
     return {"max_abs_err": diff.max().item(), "max_abs_want": want.abs().max().item(),
-            "beyond_rounding": (diff - BF16_ROUNDING * want.abs()).max().item()}
+            "beyond_rounding": (diff - BF16_ROUNDING * want.abs()).max().item(),
+            "limit": limit}
 
 
-def report_checks(checks: dict, tol: float = TOL_BF16) -> list:
-    """Print each ``{name: bf16_check}``; return the names beyond ``tol``."""
+def report_checks(checks: dict) -> list:
+    """Print each ``{name: bf16_check}``; return the names beyond their limit."""
     bad = []
     for name, c in checks.items():
-        ok = c["beyond_rounding"] <= tol
+        ok = c["beyond_rounding"] <= c["limit"]
         bad += [] if ok else [name]
         print(f"{'check' if ok else 'FAIL:'} {name}: max abs err {c['max_abs_err']:.3g} "
               f"(max |want| {c['max_abs_want']:.3g}), beyond one bf16 rounding "
-              f"{c['beyond_rounding']:.3g} (limit {tol:g})", flush=True)
+              f"{c['beyond_rounding']:.3g} (limit {c['limit']:g})", flush=True)
     return bad
 
 

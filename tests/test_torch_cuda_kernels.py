@@ -7,9 +7,17 @@ machine without it run them as
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: in fp32 (TF32 off) the kernels differ from the plain versions only
-in summation order, so 1e-4 (attention) and 1e-5 (GroupNorm); in bf16 the
+in summation order, so 1e-4 (attention) and 1e-5 (GroupNorm). In bf16 the
 kernel is compared with the plain version computed in fp32 on the same bf16
-inputs, so the bound is the output's bf16 rounding: 2e-2.
+inputs, and what is held is the error left beyond one bf16 rounding of the
+output (``scripts/timing.py::bf16_check``). The tensor-core flash kernel
+rounds P to bf16 before the PV product, as the Pallas kernel does, so it is
+held to ``TOL_BF16_P`` (2e-3: a CPU emulation of that arithmetic leaves
+1.7e-4 to 6.1e-4, a dropped key 1.3e-2 or more). GroupNorm keeps fp32
+statistics and rounds its output once, so what is left is fp32 summation
+order, a few 1e-6 at outputs up to about 5: ``TOL_BF16`` (1e-4), the limit
+of every kernel that computes in fp32 and rounds once (the head-group
+kernel too).
 """
 
 import numpy as np
@@ -21,11 +29,12 @@ from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
 from dreamlab_tpu_torch.scripts import ab_attention_layout as layout
+from dreamlab_tpu_torch.scripts.timing import TOL_BF16, TOL_BF16_P, bf16_check
 
 pytestmark = pytest.mark.requires_cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-GN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4}
+GN_TOL = {torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -42,10 +51,21 @@ def _randn(shape, dtype, device, seed):
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
+def _assert_close(got, want, tol_fp32, tol_bf16):
+    """fp32: the raw error; bf16: the error beyond one bf16 rounding."""
+    if got.dtype == torch.bfloat16:
+        c = bf16_check(got, want, tol_bf16)
+        assert c["beyond_rounding"] <= c["limit"], c
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol_fp32, err
+
+
 def test_build_reports_registers(cuda):
     log = _build.build_log()
     print(log)
-    assert "flash_fwd_kernel" in log and "gn_apply_kernel" in log
+    assert "flash_fwd_kernel" in log and "flash_mma_kernel" in log
+    assert "gn_cluster_kernel" in log and "gn_apply_kernel" in log
     assert "flash_group_kernel" in log
 
 
@@ -56,7 +76,11 @@ def test_build_reports_registers(cuda):
     (1, 256, 1000, 8, 80),   # masked edge across several key tiles
     (2, 200, 300, 2, 64),    # ragged query edge
     (1, 128, 128, 2, 128),   # widest head dim
+    (1, 1024, 1024, 2, 128),  # d = 128: dynamic shared memory above 48 KB
     (1, 1024, 1024, 8, 80),  # UNet level 2
+    (1, 4096, 4096, 2, 40),  # UNet level 1: d = 40 padded to the mma depth of 48
+    (1, 256, 300, 4, 20),    # 40-byte head rows: staged element by element
+    (2, 130, 77, 3, 7),      # odd head dim, ragged edges
 ])
 def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
     q = _randn((b, n, h, d), dtype, cuda, 0)
@@ -68,12 +92,11 @@ def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
     assert fa.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    err = (got.float() - want).abs().max().item()
-    assert err <= TOL[dtype], err
+    _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
 
 
 @pytest.mark.parametrize("block_q,block_k", [(64, 16), (64, 32), (64, 64), (128, 16),
-                                             (128, 64)])
+                                             (128, 32), (128, 64)])
 @pytest.mark.parametrize("d", [16, 40])
 def test_flash_tile_sweep_matches_plain(cuda, block_q, block_k, d):
     b, n, m, h = 1, 300, 77, 2  # ragged query and key edges
@@ -81,7 +104,7 @@ def test_flash_tile_sweep_matches_plain(cuda, block_q, block_k, d):
         [(b, n, h, d), (b, m, h, d), (b, m, h, d)]))
     got = fa.flash_attention(q, k, v, block_q=block_q, block_k=block_k)
     want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_close(got, want, None, TOL_BF16_P)
 
 
 def test_flash_tile_sweep_is_bf16_at_narrow_heads_only(cuda):
@@ -90,7 +113,7 @@ def test_flash_tile_sweep_is_bf16_at_narrow_heads_only(cuda):
         fa.flash_attention(q, q, q, block_q=64)
     q = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q, block_k=64)
+        fa.flash_attention(q, q, q, block_k=32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -113,8 +136,7 @@ def test_flash_group_matches_plain(cuda, dtype, b, n, m, h, d, pack):
     assert fg.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
     want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    err = (got.float() - want).abs().max().item()
-    assert err <= TOL[dtype], err
+    _assert_close(got, want, TOL[torch.float32], TOL_BF16)
 
 
 def test_flash_group_reads_token_strided_views(cuda):
@@ -125,7 +147,7 @@ def test_flash_group_reads_token_strided_views(cuda):
     q, k, v = (qkv[:, :, i].reshape(b, n, h, d) for i in range(3))
     got = fg.flash_group(q, k, v, pack=3)
     want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_close(got, want, None, TOL_BF16)
     with pytest.raises(ValueError):  # heads not lane-adjacent
         fg.flash_group(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, pack=3)
 
@@ -141,7 +163,7 @@ def test_kernel_call_matches_plain(cuda, dtype, lane):
     assert layout.LAUNCHES == before + 1
     want = fa.attention_plain(*(t.float().unsqueeze(2) for t in (q, k, v)),
                               40 ** -0.5).squeeze(2)
-    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
     assert not got[:, :, 40:].any()
 
 
@@ -153,7 +175,7 @@ def test_flash_reads_strided_views(cuda):
     assert not q.is_contiguous()
     got = fa.flash_attention(q, k, v)
     want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_close(got, want, None, TOL_BF16_P)
 
 
 def test_flash_rejects_what_it_does_not_take(cuda):
@@ -165,6 +187,13 @@ def test_flash_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(q, q, q)
 
 
+def _gn_params(c, dtype, device):
+    rs = np.random.RandomState(5)
+    scale = torch.from_numpy(1 + 0.1 * rs.randn(c).astype(np.float32)).to(device, dtype)
+    bias = torch.from_numpy(0.1 * rs.randn(c).astype(np.float32)).to(device, dtype)
+    return scale, bias
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape,groups", [
     ((1, 64, 64, 320), 32),
@@ -174,26 +203,62 @@ def test_flash_rejects_what_it_does_not_take(cuda):
 ])
 @pytest.mark.parametrize("silu", [True, False], ids=["silu", "nosilu"])
 def test_group_norm_matches_plain(cuda, dtype, shape, groups, silu):
+    """One launch per fused call: LAUNCHES counts every GroupNorm kernel."""
     c = shape[-1]
     x = _randn(shape, dtype, cuda, 4)
-    rs = np.random.RandomState(5)
-    scale = torch.from_numpy(1 + 0.1 * rs.randn(c).astype(np.float32)).to(cuda, dtype)
-    bias = torch.from_numpy(0.1 * rs.randn(c).astype(np.float32)).to(cuda, dtype)
-    s0, a0 = gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES
+    scale, bias = _gn_params(c, dtype, cuda)
+    before = (gn.LAUNCHES, gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES)
     got = gn.fused_group_norm_silu(x, scale, bias, groups=groups, silu=silu)
     torch.cuda.synchronize()
-    assert (gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES) == (s0 + 1, a0 + 1)
+    assert (gn.LAUNCHES, gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES) == tuple(
+        n + 1 for n in before)
     want = gn.group_norm_plain(x.float(), scale.float(), bias.float(),
                                groups=groups, silu=silu)
-    err = (got.float() - want).abs().max().item()
-    assert err <= GN_TOL[dtype], err
+    _assert_close(got, want, GN_TOL[torch.float32], TOL_BF16)
+
+
+@pytest.mark.parametrize("shape", [
+    # UNet (SD1.5 at 512x512): every channel width of its GroupNorm calls
+    (1, 64, 64, 320), (1, 64, 64, 640), (1, 64, 64, 960), (1, 32, 32, 640),
+    (1, 32, 32, 960), (1, 32, 32, 1280), (1, 16, 16, 1920), (1, 8, 8, 2560),
+    # VAE decoder: 512 at 64^2..256^2, 256 at 256^2 and 512^2 (134 MB, above
+    # the 50 MB L2), 128 at 512^2
+    (1, 64, 64, 512), (1, 256, 256, 512), (1, 512, 512, 256), (1, 512, 512, 128),
+    # batch 8 at a UNet width
+    (8, 32, 32, 640),
+])
+def test_group_norm_cluster_path_at_census_widths(cuda, shape):
+    """bf16 at the widths one request gives the kernel, against the plain
+    fp32 version; a batch row equals its solo run byte for byte."""
+    c = shape[-1]
+    x = _randn(shape, torch.bfloat16, cuda, 7)
+    scale, bias = _gn_params(c, torch.bfloat16, cuda)
+    got = gn.fused_group_norm_silu(x, scale, bias, groups=32)
+    want = gn.group_norm_plain(x.float(), scale.float(), bias.float(), groups=32, silu=True)
+    _assert_close(got, want, None, TOL_BF16)
+    solo = gn.fused_group_norm_silu(x[-1:].contiguous(), scale, bias, groups=32)
+    assert torch.equal(got[-1:], solo)
 
 
 def test_group_norm_coeffs_match_plain(cuda):
     x = _randn((2, 32, 32, 640), torch.float32, cuda, 6) + 3.0
     scale = torch.ones(640, device=cuda)
     bias = torch.zeros(640, device=cuda)
+    before = (gn.LAUNCHES, gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES)
     a, b = gn.group_norm_coeffs(x, scale, bias, groups=32)
+    assert (gn.LAUNCHES, gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
     a0, b0 = gn.group_norm_coeffs_plain(x, scale, bias, groups=32)
     assert (a - a0).abs().max().item() <= 1e-5
     assert (b - b0).abs().max().item() <= 1e-5
+
+
+def test_scale_shift_silu_launches_the_apply_kernel(cuda):
+    x = _randn((2, 16, 16, 320), torch.bfloat16, cuda, 8)
+    scale, bias = _gn_params(320, torch.bfloat16, cuda)
+    a, b = gn.group_norm_coeffs_plain(x.float(), scale.float(), bias.float(), groups=32)
+    before = (gn.LAUNCHES, gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES)
+    got = gn.scale_shift_silu(x, a, b)
+    assert (gn.LAUNCHES, gn.STATS_LAUNCHES, gn.APPLY_LAUNCHES) == (
+        before[0] + 1, before[1], before[2] + 1)
+    _assert_close(got, gn.scale_shift_silu_plain(x.float(), a, b), None, TOL_BF16)

@@ -63,10 +63,11 @@ def test_dispatch_on_cpu_takes_plain_path_and_launches_nothing():
     assert tfa.LAUNCHES == before
 
     x = torch.from_numpy(np.random.RandomState(1).randn(1, 4, 4, 16).astype(np.float32))
-    s0, a0 = tgn.STATS_LAUNCHES, tgn.APPLY_LAUNCHES
+    before = (tgn.LAUNCHES, tgn.STATS_LAUNCHES, tgn.APPLY_LAUNCHES)
     tgn.fused_group_norm_silu(x, torch.ones(16), torch.zeros(16), groups=4)
-    tgn.group_norm_coeffs(x, torch.ones(16), torch.zeros(16), groups=4)
-    assert (tgn.STATS_LAUNCHES, tgn.APPLY_LAUNCHES) == (s0, a0)
+    a, b = tgn.group_norm_coeffs(x, torch.ones(16), torch.zeros(16), groups=4)
+    tgn.scale_shift_silu(x, a, b)
+    assert (tgn.LAUNCHES, tgn.STATS_LAUNCHES, tgn.APPLY_LAUNCHES) == before
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -150,3 +151,85 @@ def test_group_norm_plain_keeps_digits_at_large_mean():
         pallas = np.asarray(fused_group_norm_silu(*map(jnp.asarray, (x, s, b)),
                                                   groups=groups))
     assert np.abs(pallas - exact).max() > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the GroupNorm cluster kernel's geometry and the order of its sums
+# ---------------------------------------------------------------------------
+
+# (H*W, C) of every GroupNorm call of one SD1.5 512x512 request (UNet, VAE)
+_CENSUS = [(4096, 320), (4096, 640), (4096, 960), (1024, 320), (1024, 640), (1024, 960),
+           (1024, 1280), (256, 640), (256, 1280), (256, 1920), (64, 1280), (64, 2560),
+           (4096, 512), (16384, 512), (65536, 512), (65536, 256), (262144, 256),
+           (262144, 128)]
+
+
+@pytest.mark.parametrize("elt", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("hw,c,groups", [(hw, c, 32) for hw, c in _CENSUS]
+                         + [(35, 64, 8), (16, 16, 4), (12, 8, 8), (7, 4096, 1)])
+def test_group_norm_geometry(hw, c, groups, elt):
+    """Slabs of whole groups in whole 16-byte vectors, at least 64 bytes
+    wide; clusters of up to 16 blocks, each with rows to read; a thread for
+    every vector of a slab row. (The geometry takes no batch size, so a row
+    is summed the same way alone or in a batch.)"""
+    slab, cluster, rows, threads = tgn.geometry(hw, c, groups, elt)
+    vec = 16 // elt
+    assert c % slab == 0 and slab % (c // groups) == 0 and slab % vec == 0
+    assert slab * elt >= tgn.MIN_SLAB_BYTES or slab == c
+    assert cluster in (1, 2, 4, 8, 16)
+    assert rows == -(-hw // cluster) and (cluster - 1) * rows < hw
+    assert threads % 32 == 0 and slab // vec <= threads <= 1024
+    if (hw, c) in _CENSUS[:7]:  # the UNet's inputs at 64^2 and 32^2
+        assert cluster * (c // slab) >= 128  # about the card's 132 SMs at batch 1
+
+
+def _cluster_stats(x, groups, elt):
+    """numpy emulation of how gn_cluster_kernel splits one batch row [HW, C]:
+    block rank r of a slab's cluster takes rows r, r + cluster, ...; its
+    thread of row group ri the block's rows ri, ri + rg, ... Each thread's
+    per-channel (mean, M2) is merged into the block's per-group (mean, M2),
+    then the cluster's over its blocks, here as sum(n_i m_i) / n and
+    sum(M2_i + n_i (m_i - mean)^2) (the kernel merges the same parts with
+    Chan's update inside a block)."""
+    hw, c = x.shape
+    slab, cluster, rows, threads = tgn.geometry(hw, c, groups, elt)
+    cg, vec = c // groups, 16 // elt
+    rg = threads // (slab // vec)
+
+    def combine(parts):
+        n = sum(p[0] for p in parts)
+        mean = sum(p[0] * p[1] for p in parts) / n
+        return n, mean, sum(p[2] + p[0] * (p[1] - mean) ** 2 for p in parts)
+
+    mean, var = np.zeros(groups), np.zeros(groups)
+    for c0 in range(0, c, slab):
+        blocks = []
+        for rank in range(cluster):
+            mine = x[rank::cluster, c0:c0 + slab]
+            assert len(mine) <= rows
+            parts = [[] for _ in range(slab // cg)]
+            for ri in range(rg):
+                col = mine[ri::rg]
+                for ch in range(slab):
+                    v = col[:, ch]
+                    parts[ch // cg].append((len(v), v.mean() if len(v) else 0.0,
+                                            ((v - v.mean()) ** 2).sum() if len(v) else 0.0))
+            blocks.append([combine(p) if len(mine) else (0, 0.0, 0.0) for p in parts])
+        for gi in range(slab // cg):
+            n, m, m2 = combine([b[gi] for b in blocks])
+            assert n == hw * cg  # every row counted once
+            mean[c0 // cg + gi], var[c0 // cg + gi] = m, m2 / n
+    return mean, var
+
+
+@pytest.mark.parametrize("hw,c,groups", [(512, 320, 32), (4096, 128, 32), (35, 64, 8),
+                                         (64, 2560, 32)])
+def test_cluster_kernel_order_of_sums_matches_the_two_pass_statistics(hw, c, groups):
+    """Every row is counted once, in the blocks' and row groups' split, and
+    the merged mean and variance are the two-pass ones of the plain version."""
+    x = (3.0 + np.random.RandomState(hw + c).randn(hw, c)).astype(np.float32)
+    _, want_mean, want_var = tgn._group_stats(torch.from_numpy(x)[None], groups)
+    for elt in (2, 4):
+        mean, var = _cluster_stats(x.astype(np.float64), groups, elt)
+        np.testing.assert_allclose(mean, want_mean.numpy().ravel(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(var, want_var.numpy().ravel(), rtol=1e-5, atol=0)

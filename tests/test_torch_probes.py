@@ -35,6 +35,7 @@ from dreamlab_tpu_torch.scripts import timing as t_timing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-5
+_FAULTS = ("one_key_dropped", "key_tile_dropped", "scale_1pct_off")
 
 
 def _load_script(name):
@@ -247,8 +248,43 @@ def test_probe_main_needs_a_gpu(monkeypatch, name):
 
 
 # ---------------------------------------------------------------------------
-# the probes' bf16 check limit at N = M = 4096
+# the probes' bf16 check limits at N = M = 4096
 # ---------------------------------------------------------------------------
+
+
+def _tile_bf16_p(q, k, v, scale, block_k=64):
+    """A plain emulation of the tensor-core flash kernel's arithmetic on
+    [B, N, H, D]: keys in tiles of ``block_k``, online softmax in fp32, the row
+    sum over fp32 P, P rounded to bf16 before the PV product (the Pallas
+    kernel's ``p.astype(v.dtype)``), fp32 accumulation, the output rounded
+    to bf16 once."""
+    qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))
+    b, h, n, d = qh.shape
+    row_max = torch.full((b, h, n, 1), -1e30)
+    row_sum = torch.zeros((b, h, n, 1))
+    acc = torch.zeros((b, h, n, d))
+    for j0 in range(0, kh.shape[2], block_k):
+        s = qh @ kh[:, :, j0:j0 + block_k].transpose(-1, -2) * scale
+        new_max = torch.maximum(row_max, s.amax(-1, keepdim=True))
+        alpha = torch.exp(row_max - new_max)
+        p = torch.exp(s - new_max)
+        row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vh[:, :, j0:j0 + block_k]
+        row_max = new_max
+    return (acc / row_sum).transpose(1, 2).bfloat16()
+
+
+def _faulty(q, k, v, scale, fault, arith):
+    """The output of a kernel with ``fault`` (one key or a 32-key tile of
+    4096 dropped, or the scale 1 % off) in the given arithmetic."""
+    keep = torch.ones(k.shape[1], dtype=torch.bool)
+    if fault == "scale_1pct_off":
+        scale *= 1.01
+    else:
+        keep[1000:1001 if fault == "one_key_dropped" else 1032] = False
+    if arith == "fp32":
+        return tfa.attention_plain(q, k[:, keep], v[:, keep], scale).bfloat16()
+    return _tile_bf16_p(q, k[:, keep], v[:, keep], scale)
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,30 +295,43 @@ def _n4096():
     return q, k, v, tfa.attention_plain(q, k, v, 40 ** -0.5)
 
 
-@pytest.mark.parametrize("d,scale_d", [(40, 40), (128, 40)])
-def test_probe_limit_passes_one_bf16_rounding(d, scale_d):
-    """The output rounded once to bf16 passes, at d = 40 and at d = 128 with
-    the d = 40 scale, where the outputs reach about 1 and a raw-error limit
-    of 3e-3 would fail."""
+@pytest.mark.parametrize("d,scale_d,arith", [
+    pytest.param(40, 40, "fp32", id="40-40"),
+    pytest.param(128, 40, "fp32", id="128-40"),
+    pytest.param(40, 40, "bf16_p", id="40-40-bf16_p"),
+    pytest.param(80, 80, "bf16_p", id="80-80-bf16_p"),
+    pytest.param(128, 40, "bf16_p", id="128-40-bf16_p"),
+])
+def test_probe_limit_passes_one_bf16_rounding(d, scale_d, arith):
+    """fp32: the output rounded once to bf16 passes TOL_BF16, at d = 40 and at
+    d = 128 with the d = 40 scale, where the outputs reach about 1 and a
+    raw-error limit of 3e-3 would fail. bf16_p: the tensor-core kernel's
+    arithmetic (P rounded to bf16) leaves more than TOL_BF16 beyond the
+    rounding and passes TOL_BF16_P, at d = 40, 80 and 128."""
     q, k, v = (x.bfloat16().float() for x in _torch(*_qkv(1, 1, 4096, 4096, 2, d)))
     ref = tfa.attention_plain(q, k, v, scale_d ** -0.5)
-    check = t_timing.bf16_check(ref.bfloat16(), ref)
-    assert check["beyond_rounding"] <= 0
+    if arith == "fp32":
+        check = t_timing.bf16_check(ref.bfloat16(), ref)
+        assert check["beyond_rounding"] <= 0
+    else:
+        check = t_timing.bf16_check(_tile_bf16_p(q, k, v, scale_d ** -0.5), ref,
+                                    t_timing.TOL_BF16_P)
+        assert t_timing.TOL_BF16 < check["beyond_rounding"] <= t_timing.TOL_BF16_P / 3
     assert t_timing.report_checks({"rounded": check}) == []
 
 
-@pytest.mark.parametrize("fault", ["one_key_dropped", "key_tile_dropped", "scale_1pct_off"])
-def test_probe_limit_catches_a_faulty_kernel_at_n4096(fault):
+@pytest.mark.parametrize("fault,arith", [
+    *(pytest.param(f, "fp32", id=f) for f in _FAULTS),
+    *(pytest.param(f, "bf16_p", id=f"{f}-bf16_p") for f in _FAULTS),
+])
+def test_probe_limit_catches_a_faulty_kernel_at_n4096(fault, arith):
+    """Each fault fails its arithmetic's limit by a wide margin: ten times
+    TOL_BF16 in fp32, twice TOL_BF16_P with P rounded to bf16."""
     q, k, v, ref = _n4096()
-    scale = 40 ** -0.5
-    keep = torch.ones(4096, dtype=torch.bool)
-    if fault == "scale_1pct_off":
-        scale *= 1.01
-    else:
-        keep[1000:1001 if fault == "one_key_dropped" else 1032] = False
-    got = tfa.attention_plain(q, k[:, keep], v[:, keep], scale).bfloat16()
-    check = t_timing.bf16_check(got, ref)
-    assert check["beyond_rounding"] > 10 * t_timing.TOL_BF16
+    limit, margin = ((t_timing.TOL_BF16, 10) if arith == "fp32"
+                     else (t_timing.TOL_BF16_P, 2))
+    check = t_timing.bf16_check(_faulty(q, k, v, 40 ** -0.5, fault, arith), ref, limit)
+    assert check["beyond_rounding"] > margin * limit
     assert t_timing.report_checks({fault: check}) == [fault]
 
 
