@@ -7,7 +7,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
 1. prints the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
 2. builds the CUDA kernels from ``dreamlab_tpu_torch/csrc`` (nvcc, sm_90a),
    prints each kernel's registers and spills (ptxas) and its tensor-core
-   (HMMA) instructions (cuobjdump), and fails if a bf16 flash kernel has none;
+   (HMMA) instructions (cuobjdump), and fails if an instance of a bf16 flash
+   kernel (one head, ``flash_mma_kernel``; head group,
+   ``flash_group_mma_kernel``) has none or spills;
 3. holds each kernel against its plain PyTorch version on the card (bf16:
    the error beyond one bf16 rounding of the output,
    ``scripts/timing.py::bf16_check``), and a tiny fp32 pipeline on the card
@@ -16,7 +18,8 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
 4. holds each kernel against its plain version again, and times it (device
    time, ``scripts/timing.py::device_ms``), at the shapes one 512x512
    request gives it (found by a census run), beside its plain version, a
-   library call and its bound;
+   library call and its bound; at each flash shape also K1's tile sweep and
+   the head-group kernel at the JAX package's pack (main-path candidates);
 5. drives the main path at SD1.5's full width with seeded random bf16
    weights: 20 timed CudaPipelineWorker.run_job requests (512x512, 4 LCM
    steps), one of them a repeat that must be byte-identical, and run_jobs
@@ -73,9 +76,9 @@ HBM_BYTES_PER_S = 3.35e12
 
 # fp32: the kernels differ from the plain versions in summation order only.
 # bf16: the error beyond one bf16 rounding of the output (bf16_check), at most
-# TOL_BF16_P for the tensor-core flash kernel (it rounds P to bf16, as the
-# Pallas kernel does) and TOL_BF16 for GroupNorm (fp32 statistics, one
-# rounding of the output).
+# TOL_BF16_P for the tensor-core flash kernels, one head and head group (they
+# round P to bf16, as the Pallas kernels do) and TOL_BF16 for GroupNorm (fp32
+# statistics, one rounding of the output).
 TOL_FP32_FLASH = 1e-4
 TOL_FP32_GN = 1e-5
 TOL_GN_COEFFS = 1e-4  # fp32 statistics over up to 1M values, summed in another order
@@ -164,14 +167,22 @@ def sass_hmma(so) -> dict:
     return {names[k]: n for k, n in sorted(counts.items())}
 
 
+MMA_KERNELS = ("flash_mma_kernel", "flash_group_mma_kernel")  # the bf16 flash kernels
+
+
 def check_build(so) -> None:
-    for row in ptxas_summary(_build.build_log()):
+    ptxas = ptxas_summary(_build.build_log())
+    for row in ptxas:
         log({"ptxas": row})
     hmma = sass_hmma(so)
     log({"sass_hmma": hmma})
-    mma = {k: n for k, n in hmma.items() if "flash_mma_kernel" in k}
-    expect(len(mma) > 0 and all(n > 0 for n in mma.values()),
-           f"the bf16 flash kernels contain no HMMA: {mma}")
+    for kern in MMA_KERNELS:
+        mma = {k: n for k, n in hmma.items() if kern in k}
+        expect(len(mma) > 0 and all(n > 0 for n in mma.values()),
+               f"an instance of {kern} contains no HMMA: {mma}")
+        spills = [r for r in ptxas if kern in r["kernel"]
+                  and r.get("spill_stores", 0) + r.get("spill_loads", 0) > 0]
+        expect(not spills, f"instances of {kern} spill: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +341,8 @@ def time_kernels(seen, dtype, errs) -> dict:
             bms, by = bound_ms(4.0 * b * h * n * m * d, elt * (2 * b * n * h * d + 2 * b * m * h * d),
                                dtype)
             log({"time": "flash", "shape": [b, n, m, h, d], "count": count, **t,
-                 "bound_ms": bms, "bound_by": by, "tiles_ms": tiles, "check": c})
+                 "bound_ms": bms, "bound_by": by, "tiles_ms": tiles,
+                 "head_group": time_group(q, k, v), "check": c})
             _accumulate(rows["flash"], t, bms, by, count)
             continue
         groups = extra
@@ -365,6 +377,22 @@ def time_kernels(seen, dtype, errs) -> dict:
         _accumulate(rows["gn_apply"], t3, *b3, count)
         _accumulate(rows["gn"], tc, *bc, count)
     return rows
+
+
+def time_group(q, k, v) -> dict:
+    """The head-group kernel at the JAX package's pack for this shape (a
+    candidate for the main path, which runs one head per block), checked
+    against the plain fp32 version, then timed; {} where pack_geometry
+    gives one head or a group the kernel does not take."""
+    b, n, h, d = q.shape
+    pack = fa.pack_geometry(h, d)[0]
+    if d > fg.MAX_HEAD_DIM.get(pack, 0):
+        return {}
+    want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    c = bf16_check(fg.flash_group(q, k, v, pack=pack), want, TOL_BF16_P)
+    expect(c["beyond_rounding"] <= c["limit"], f"flash_group census {[b, n, h, d]}: {c}")
+    return {"pack": pack, "ms": device_ms(lambda: fg.flash_group(q, k, v, pack=pack)),
+            "check": c}
 
 
 def _accumulate(row, t, bms, by, count) -> None:
@@ -618,10 +646,12 @@ def probes(errs) -> tuple:
     t4 = runs["ab_transpose_free"]
     lay = runs["ab_attention_layout"]
     hp = runs["ab_head_packing"]
-    errs["flash_4d"] = max(c["max_abs_err"] for case, c in t4["checks"].items()
-                           if case.endswith("/group"))
-    errs["flash_folded"] = max(lay["checks"][lane]["max_abs_err"] for lane in ("folded", "nopad"))
-    errs["flash_packed3"] = hp["checks"]["packed3"]["max_abs_err"]
+    checks_of = {"flash_4d": [c for case, c in t4["checks"].items() if case.endswith("/group")],
+                 "flash_folded": [lay["checks"][lane] for lane in ("folded", "nopad")],
+                 "flash_packed3": [hp["checks"]["packed3"]]}
+    for name, checks in checks_of.items():
+        errs[name] = max(c["max_abs_err"] for c in checks)
+        errs[f"{name}_beyond"] = max(c["beyond_rounding"] for c in checks)
     bf16 = torch.bfloat16
     # per probe run: one call at each shape the probe gives the kernel;
     # K5 at lane 128 (the folded variant; lane 40 is in the probes line)
@@ -652,6 +682,7 @@ def probes(errs) -> tuple:
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "beyond_rounding_limit": TOL_BF16_P, "max_beyond_rounding": errs[f"{name}_beyond"],
             # K5 at lane 128 computes 3.2x the work of d = 40: both bounds
             **({"bound_ms_d40": k5_bound(al.D)[0]}
                if name == "flash_folded" else {})})

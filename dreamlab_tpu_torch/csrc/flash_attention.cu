@@ -15,8 +15,9 @@
 // so the bound is arithmetic: 0.489 ms per 512x512 request at the 989 TFLOP/s
 // bf16 tensor-core peak.
 //
-// What this design does about it (bf16, flash_mma_kernel): both products run
-// on the tensor cores, mma.sync m16n8k16 with bf16 operands and fp32
+// What this design does about it (bf16, flash_mma_kernel; its building blocks
+// are in csrc/mma.cuh, shared with the head-group kernel of csrc/flash_group.cu):
+// both products run on the tensor cores, mma.sync m16n8k16 with bf16 operands and fp32
 // accumulators. One block owns (b, h, BQ queries) and BQ/16 warps; each warp
 // owns 16 query rows, loads their Q fragment once (ldmatrix) and keeps it in
 // registers. The block walks the keys in tiles of BK, staged in shared memory
@@ -43,15 +44,11 @@
 // reaches well below it), TMA loads with mbarriers, and a producer warp that
 // keeps them in flight while the consumer warps compute.
 
-#include <atomic>
 #include <initializer_list>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;  // finite mask value, as in the Pallas kernel
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // fp32: scalar kernel, one query row per thread
@@ -203,90 +200,9 @@ int dispatch_fp32(const void* q, const void* k, const void* v, void* o,
 // bf16: tensor-core kernel (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 // the main path's tiles (dreamlab_tpu_torch/ops/flash_attention.py mirrors them)
 constexpr int kBlockQ = 128;
 constexpr int kBlockK = 64;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; valid == false zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values as a bf16 pair, `lo` in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Stage rows [row0, row0 + ROWS) x dims [0, DP) of one head (row stride
-// `stride` elements) into shared memory with row pitch LD; rows at or beyond
-// `nrows` and dims at or beyond d are zero. vec: 16-byte cp.async copies
-// (every row start 16-byte aligned and d % 8 == 0); else element by element.
-template <int ROWS, int DP, int LD, int NT>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int64_t stride,
-                                           int row0, int nrows, int d, bool vec) {
-  if (vec) {
-    constexpr int CHUNKS = DP / 8;
-    for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NT) {
-      const int r = i / CHUNKS;
-      const int c = (i - r * CHUNKS) * 8;
-      const bool valid = row0 + r < nrows && c < d;
-      cp_async16(dst + r * LD + c,
-                 valid ? src + static_cast<int64_t>(row0 + r) * stride + c : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
-      const int r = i / DP;
-      const int c = i - r * DP;
-      bf16 val = __float2bfloat16(0.f);
-      if (row0 + r < nrows && c < d) val = src[static_cast<int64_t>(row0 + r) * stride + c];
-      dst[r * LD + c] = val;
-    }
-  }
-}
-
-template <int DP, int BQ, int BK>
-constexpr size_t mma_smem_bytes() {
-  return static_cast<size_t>(BQ + 4 * BK) * (DP + 8) * sizeof(bf16);
-}
 
 template <int DP, int BQ, int BK>
 __global__ void __launch_bounds__(BQ * 2)
@@ -321,9 +237,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * k_sb + hh * k_sh;
   const bf16* vb = v + b * v_sb + hh * v_sh;
 
-  stage_tile<BQ, DP, LD, NT>(sq, qb, q_sn, q0, n, d, vec);
-  stage_tile<BK, DP, LD, NT>(sk, kb, k_sm, 0, m, d, vec);
-  stage_tile<BK, DP, LD, NT>(sv, vb, v_sm, 0, m, d, vec);
+  stage_tile<BQ, 1, DP, LD, NT>(sq, qb, q_sn, q0, n, d, vec);
+  stage_tile<BK, 1, DP, LD, NT>(sk, kb, k_sm, 0, m, d, vec);
+  stage_tile<BK, 1, DP, LD, NT>(sv, vb, v_sm, 0, m, d, vec);
   cp_async_commit();
 
   uint32_t qf[KD][4];
@@ -339,8 +255,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = it & 1;
     if (it + 1 < ntiles) {
       // the other buffer was released by the barrier that ended the last tile
-      stage_tile<BK, DP, LD, NT>(sk + (st ^ 1) * BK * LD, kb, k_sm, (it + 1) * BK, m, d, vec);
-      stage_tile<BK, DP, LD, NT>(sv + (st ^ 1) * BK * LD, vb, v_sm, (it + 1) * BK, m, d, vec);
+      stage_tile<BK, 1, DP, LD, NT>(sk + (st ^ 1) * BK * LD, kb, k_sm, (it + 1) * BK, m, d, vec);
+      stage_tile<BK, 1, DP, LD, NT>(sv + (st ^ 1) * BK * LD, vb, v_sm, (it + 1) * BK, m, d, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -461,30 +377,16 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Raise an instance's dynamic shared-memory limit once, where it needs more
-// than the default 48 KB (d = 128).
-template <int DP, int BQ, int BK>
-cudaError_t allow_smem() {
-  constexpr size_t bytes = mma_smem_bytes<DP, BQ, BK>();
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  static std::atomic<bool> done{false};
-  if (done.load()) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<DP, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) done.store(true);
-  return err;
-}
-
 template <int DP, int BQ, int BK>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                int b, int n, int m, int h, int d,
                const int64_t* qs, const int64_t* ks, const int64_t* vs,
                float scale, int vec, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<DP, BQ, BK>();
+  constexpr size_t smem = flash_smem_bytes<1, DP, BQ, BK>();
+  static const cudaError_t err = allow_smem(flash_mma_kernel<DP, BQ, BK>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + BQ - 1) / BQ, h, b);
-  flash_mma_kernel<DP, BQ, BK><<<grid, BQ * 2, mma_smem_bytes<DP, BQ, BK>(), stream>>>(
+  flash_mma_kernel<DP, BQ, BK><<<grid, BQ * 2, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), n, m, h, d,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],

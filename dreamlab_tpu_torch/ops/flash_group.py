@@ -4,9 +4,11 @@ The kernel (``csrc/flash_group.cu``) replaces the Pallas TPU kernels of two
 layout probes: ``scripts/ab_transpose_free.py::flash_attention_4d`` (K1's
 kernel over the 4-D ``[B, N, G, L]`` view) and
 ``scripts/ab_head_packing.py::_packed3_kernel`` (3 heads per lane block). One
-block owns ``pack`` lane-adjacent heads and 128 query rows and reads the
-group's ``L = pack * d`` contiguous lanes of each token row in place; each
-K/V tile is loaded once and feeds all ``pack`` heads.
+block owns ``pack`` lane-adjacent heads and reads the group's ``L = pack * d``
+contiguous lanes of each token row in place; each K/V tile is loaded once and
+feeds all ``pack`` heads. bf16 runs the one-head kernel's tensor-core loop
+(64 query rows per head) and rounds P to bf16 before the PV product, as both
+Pallas kernels do; fp32 keeps a scalar kernel (128 query rows per block).
 
 ``flash_group`` launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; for CPU tensors it computes ``flash_group_plain``.

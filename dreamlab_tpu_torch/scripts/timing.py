@@ -16,7 +16,7 @@ Each probe holds every kernel variant it times against the plain fp32
 version on the same inputs first (``bf16_check``), and times nothing if one
 is off by more than a bf16 rounding of the output and its limit:
 ``TOL_BF16`` for kernels that compute in fp32 and round once,
-``TOL_BF16_P`` for the tensor-core flash kernel, which rounds P too.
+``TOL_BF16_P`` for the tensor-core flash kernels, which round P too.
 """
 
 from __future__ import annotations
@@ -42,13 +42,15 @@ MAX_QUEUE_S = 0.04  # host time to queue the timed calls, within the spin
 BF16_ROUNDING = 2.0 ** -8
 TOL_BF16 = 1e-4
 
-# The tensor-core flash kernel (K1, and K5 on its folded view) rounds the
-# probabilities P to bf16 before the PV product, as the Pallas kernel does
-# (``p.astype(v.dtype)``), while the plain version keeps them fp32. A CPU
-# emulation of that arithmetic at N = M = 4096 with randn inputs (64-key
-# tiles, P rounded to bf16, fp32 sums; tests/test_torch_probes.py) leaves
-# 1.8e-4 (d = 40), 1.7e-4 (d = 80) and 6.1e-4 (d = 128 at the d = 40 scale)
-# beyond one rounding of the output, more than TOL_BF16; in the same
+# The tensor-core flash kernels (K1, K5 on its folded view, and the head-group
+# kernel of K4 and K6) round the probabilities P to bf16 before the PV
+# product, as the Pallas kernels do (``p.astype(v.dtype)``), while the plain
+# version keeps them fp32. A CPU emulation of that arithmetic at N = M = 4096
+# with randn inputs (64-key tiles, P rounded to bf16, fp32 sums;
+# tests/test_torch_probes.py) leaves 1.8e-4 (d = 40), 1.7e-4 (d = 80) and
+# 6.1e-4 (d = 128 at the d = 40 scale) beyond one rounding of the output,
+# more than TOL_BF16, and the Pallas K4 and K6 themselves (interpret mode,
+# N = 512, same test file) leave 5.1e-4 to 5.4e-4; in the same
 # arithmetic one dropped key of 4096 leaves 1.3e-2 to 1.3e-1 and a scale 1 %
 # off 5.1e-3 to 4.3e-2. TOL_BF16_P passes the right arithmetic by 3.2x or more
 # and refuses each of those faults by 2.5x or more.

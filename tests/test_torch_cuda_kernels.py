@@ -10,14 +10,14 @@ Tolerances: in fp32 (TF32 off) the kernels differ from the plain versions only
 in summation order, so 1e-4 (attention) and 1e-5 (GroupNorm). In bf16 the
 kernel is compared with the plain version computed in fp32 on the same bf16
 inputs, and what is held is the error left beyond one bf16 rounding of the
-output (``scripts/timing.py::bf16_check``). The tensor-core flash kernel
-rounds P to bf16 before the PV product, as the Pallas kernel does, so it is
-held to ``TOL_BF16_P`` (2e-3: a CPU emulation of that arithmetic leaves
-1.7e-4 to 6.1e-4, a dropped key 1.3e-2 or more). GroupNorm keeps fp32
-statistics and rounds its output once, so what is left is fp32 summation
-order, a few 1e-6 at outputs up to about 5: ``TOL_BF16`` (1e-4), the limit
-of every kernel that computes in fp32 and rounds once (the head-group
-kernel too).
+output (``scripts/timing.py::bf16_check``). The tensor-core flash kernels,
+one head per block and head group, round P to bf16 before the PV product,
+as the Pallas kernels do, so they are held to ``TOL_BF16_P`` (2e-3: a CPU
+emulation of that arithmetic leaves 1.7e-4 to 6.1e-4, a dropped key 1.3e-2
+or more). GroupNorm keeps fp32 statistics and rounds its output once, so
+what is left is fp32 summation order, a few 1e-6 at outputs up to about 5:
+``TOL_BF16`` (1e-4), the limit of every kernel that computes in fp32 and
+rounds once.
 """
 
 import numpy as np
@@ -66,7 +66,7 @@ def test_build_reports_registers(cuda):
     print(log)
     assert "flash_fwd_kernel" in log and "flash_mma_kernel" in log
     assert "gn_cluster_kernel" in log and "gn_apply_kernel" in log
-    assert "flash_group_kernel" in log
+    assert "flash_group_fwd_kernel" in log and "flash_group_mma_kernel" in log
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -121,10 +121,15 @@ def test_flash_tile_sweep_is_bf16_at_narrow_heads_only(cuda):
     (1, 256, 256, 6, 40, 3),
     (2, 200, 77, 6, 40, 3),    # ragged query edge, masked keys
     (1, 256, 1000, 4, 64, 2),  # masked edge across several key tiles
+    (1, 192, 333, 6, 40, 3),   # keys: five full 64-key tiles and 13 more
+    (1, 100, 256, 4, 64, 2),   # queries: one 64-row tile and 36 more
     (1, 256, 300, 8, 40, 2),
     (2, 130, 50, 6, 16, 3),
     (1, 128, 33, 2, 16, 2),
-    (1, 128, 100, 4, 24, 2),   # zero-padded in registers to 40
+    (1, 128, 100, 4, 24, 2),   # zero-filled to the mma depth of 48 (fp32: to 40)
+    (1, 256, 300, 4, 20, 2),   # 40-byte head slices: staged element by element
+    (2, 130, 77, 3, 7, 3),     # odd head dim, ragged edges: element by element
+    (2, 4096, 4096, 10, 64, 2),  # the probes' K4 shape at pack 2
 ])
 def test_flash_group_matches_plain(cuda, dtype, b, n, m, h, d, pack):
     q = _randn((b, n, h, d), dtype, cuda, 0)
@@ -136,7 +141,14 @@ def test_flash_group_matches_plain(cuda, dtype, b, n, m, h, d, pack):
     assert fg.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
     want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    _assert_close(got, want, TOL[torch.float32], TOL_BF16)
+    _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
+
+
+def test_flash_group_bf16_is_bitwise_repeatable(cuda):
+    """No split over keys and no atomics: two calls give the same bytes."""
+    q, k, v = (_randn((2, 1000, 6, 40), torch.bfloat16, cuda, i) for i in range(3))
+    first = fg.flash_group(q, k, v, pack=3)
+    assert torch.equal(first.view(torch.int16), fg.flash_group(q, k, v, pack=3).view(torch.int16))
 
 
 def test_flash_group_reads_token_strided_views(cuda):
@@ -147,7 +159,7 @@ def test_flash_group_reads_token_strided_views(cuda):
     q, k, v = (qkv[:, :, i].reshape(b, n, h, d) for i in range(3))
     got = fg.flash_group(q, k, v, pack=3)
     want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    _assert_close(got, want, None, TOL_BF16)
+    _assert_close(got, want, None, TOL_BF16_P)
     with pytest.raises(ValueError):  # heads not lane-adjacent
         fg.flash_group(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, pack=3)
 

@@ -320,6 +320,34 @@ def test_probe_limit_passes_one_bf16_rounding(d, scale_d, arith):
     assert t_timing.report_checks({"rounded": check}) == []
 
 
+@pytest.mark.parametrize("kernel,shape,pack", [
+    pytest.param("k4", (1, 512, 6, 40), 3, id="k4-pack3"),
+    pytest.param("k4", (1, 512, 4, 64), 2, id="k4-pack2"),
+    pytest.param("k6", (1, 512, 6, 40), 3, id="k6"),
+])
+def test_group_limit_is_the_pallas_kernels_arithmetic(jax_4d, jax_packing, kernel, shape, pack):
+    """The Pallas K4 and K6 on bf16 inputs (interpret mode) round P to bf16
+    before the PV product, as the card's head-group kernel does: each leaves
+    more than TOL_BF16 beyond one rounding of the plain fp32 output, and
+    stays within TOL_BF16_P, the limit the group kernel is held to."""
+    b, n, h, d = shape
+    if kernel == "k4":
+        fn = jax_4d.flash_attention_4d
+        assert tfa.pack_geometry(h, d)[0] == pack
+    else:
+        fn = jax_packing.flash_attention_packed3
+    q, k, v = _qkv(0, b, n, n, h, d)
+    with pltpu.force_tpu_interpret_mode():
+        got = fn(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), scale=d ** -0.5,
+                 block_q=128, block_k=128)
+    got = torch.from_numpy(np.array(got.astype(jnp.float32)))
+    qb, kb, vb = (x.bfloat16().float() for x in _torch(q, k, v))
+    check = t_timing.bf16_check(got, tfg.flash_group_plain(qb, kb, vb, d ** -0.5),
+                                t_timing.TOL_BF16_P)
+    assert t_timing.TOL_BF16 < check["beyond_rounding"] <= t_timing.TOL_BF16_P
+    assert t_timing.report_checks({kernel: check}) == []
+
+
 @pytest.mark.parametrize("fault,arith", [
     *(pytest.param(f, "fp32", id=f) for f in _FAULTS),
     *(pytest.param(f, "bf16_p", id=f"{f}-bf16_p") for f in _FAULTS),
