@@ -25,7 +25,23 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    steps), one of them a repeat that must be byte-identical, and run_jobs
    batches of 8 whose row must match that spec's solo run; launch counts must
    show every kernel ran, and that each GroupNorm call launched one kernel;
-6. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
+6. loader phase: writes SD1.5 at full width (``random_bundle(seed=0)``, fp16)
+   as a diffusers directory in a temporary directory, builds a worker from it
+   with ``create_cuda_worker`` (load seconds printed), and checks that one
+   ``run_job``'s PNG is byte-identical to that of a pipeline built in memory
+   from the same fp16 values, with 40 flash and 209 GroupNorm launches;
+7. SDXL phase: SDXL at full width (two text towers, ``text_time``
+   micro-conditioning), seeded random bf16 weights drawn on the card, 1024x1024,
+   4 steps. A census of one request (280 flash, 169 GroupNorm launches), each
+   kernel held against its plain version and timed at every census shape, the
+   largest VAE GroupNorm also at batch 2 and the VAE's plain mid-block
+   attention (one 512-wide head over 16384 tokens) timed with its peak memory;
+   then 5 timed requests at guidance 1.0 (``none`` mode; one a repeat that
+   must be byte-identical), one at guidance 2.0 with a negative prompt (the
+   batch-doubled ``cfg`` mode), ``run_jobs`` of 2 in each mode whose rows must
+   equal their solo runs byte for byte, one profiled request, the peak memory;
+   one ``{"sdxl": {...}}`` line;
+8. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
    ``kernel_call`` at lanes 40 and 128, K6 ``flash_attention_packed3``) in
    fp32 against their plain versions at the probes' full shapes, then runs
    the three probe entry points of ``dreamlab_tpu_torch/scripts`` with their
@@ -34,8 +50,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    rounding of the output), then times them beside the plain
    version and SDPA; the phase reads their errors and times, adds each
    kernel's bound, and prints one ``{"probes": {...}}`` line;
-7. prints the ``{"kernels": [...]}`` line, the main path's numbers, and last
-   ``{"ok": true, "device": {...}}``.
+9. prints the ``{"kernels": [...]}`` line (each kernel on the SD1.5 main path,
+   then on the SDXL path with a ``_sdxl`` name, then the probes' kernels), and
+   last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -58,6 +76,7 @@ import torch.nn.functional as F
 
 from dreamlab_tpu_torch.engine.base import GenSpec
 from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
+from dreamlab_tpu_torch.engine.worker_factory import create_cuda_worker
 from dreamlab_tpu_torch.models import layers
 from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
@@ -67,7 +86,7 @@ from dreamlab_tpu_torch.pipeline import LCMPipeline
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
 from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
                                                max_err)
-from dreamlab_tpu_torch.testing import random_bundle
+from dreamlab_tpu_torch.testing import cast_params, random_bundle, write_diffusers_dir
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # operations over the peak for the inputs' type and bytes over HBM bandwidth
@@ -87,6 +106,12 @@ STEPS = 4
 SIZE = 512
 LATENCY_SAMPLES = 20  # batch-1 requests timed on the main path (p50 over them)
 BATCH8_SAMPLES = 3  # run_jobs calls of 8 timed (img/s from their median)
+XL_SIZE = 1024
+XL_LATENCY_SAMPLES = 5  # SDXL batch-1 requests timed (p50, min, max over them)
+# one SDXL request: 10 self-attention sites at 4096 tokens and 60 at 1024 per
+# UNet call; 35 GroupNorm+SiLU calls per UNet call (17 resnets x 2 + norm_out)
+# and 29 in the VAE decode; 4 steps; the cfg mode's doubled batch launches the same
+XL_PER_REQUEST = {"flash": 4 * 70, "gn": 4 * 35 + 29}
 FAILURES = []
 
 
@@ -297,8 +322,8 @@ def check_small_pipeline() -> None:
 # ---------------------------------------------------------------------------
 
 
-def census(pipe) -> collections.Counter:
-    """Shapes each kernel wrapper sees in one batch-1 512x512 request."""
+def census(pipe, size: int = SIZE) -> collections.Counter:
+    """Shapes each kernel wrapper sees in one batch-1 request at ``size``²."""
     seen = collections.Counter()
     flash, gnorm = attention.flash_attention, layers.fused_group_norm_silu
 
@@ -312,7 +337,7 @@ def census(pipe) -> collections.Counter:
 
     attention.flash_attention, layers.fused_group_norm_silu = rec_flash, rec_gn
     try:
-        pipe.generate("census", height=SIZE, width=SIZE, num_inference_steps=STEPS, seed=0)
+        pipe.generate("census", height=size, width=size, num_inference_steps=STEPS, seed=0)
     finally:
         attention.flash_attention, layers.fused_group_norm_silu = flash, gnorm
     return seen
@@ -425,9 +450,9 @@ def png_pixels(png: bytes) -> np.ndarray:
     return np.cumsum(rows[:, 1:], axis=0, dtype=np.uint8).reshape(h, w, 3)
 
 
-def check_png(png: bytes) -> None:
+def check_png(png: bytes, size: int = SIZE) -> None:
     expect(png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR"
-           and struct.unpack(">II", png[16:24]) == (SIZE, SIZE), "PNG header / IHDR 512x512")
+           and struct.unpack(">II", png[16:24]) == (size, size), f"PNG header / IHDR {size}²")
 
 
 def host_cpu() -> str:
@@ -554,7 +579,175 @@ def profile(run) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the probes (K4, K5, K6) of dreamlab_tpu_torch/scripts
+# phase 6: a checkpoint directory through the loader
+# ---------------------------------------------------------------------------
+
+
+def loader_phase(per_request) -> dict:
+    """SD1.5 at full width written as an fp16 diffusers directory, served by
+    ``create_cuda_worker``: its PNG must equal, byte for byte, that of a
+    pipeline built in memory from the same fp16 values."""
+    bundle = cast_params(random_bundle(seed=0, device="cuda"), torch.float16)
+    spec = GenSpec("a mountain at sunset", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
+                   seed=21)
+    with tempfile.TemporaryDirectory(prefix="dreamlab_ckpt_") as root:
+        model_dir = os.path.join(root, "sd15")
+        t0 = time.perf_counter()
+        write_diffusers_dir(bundle, model_dir)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(model_dir) for f in files)
+        memory = CudaPipelineWorker(LCMPipeline(bundle))
+        del bundle
+        png_memory = memory.run_job(spec)[0]
+        del memory
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        worker = create_cuda_worker(0, model_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        reset_counts()
+        png_loaded = worker.run_job(spec)[0]
+        launched = counts()
+    del worker
+    torch.cuda.empty_cache()
+    expect(png_loaded == png_memory, "the loaded checkpoint's PNG differs from the "
+                                     "in-memory pipeline's on the same fp16 values")
+    expect(launched == per_request, f"the loaded worker launched {launched}, "
+                                    f"expected {per_request}")
+    check_png(png_loaded)
+    return {"checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+            "png_identical": png_loaded == png_memory, "launches": launched}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: SDXL at 1024x1024
+# ---------------------------------------------------------------------------
+
+
+def check_sdxl_extremes(errs) -> dict:
+    """The largest VAE GroupNorm at batch 2 (the census has batch 1), and the
+    VAE's plain mid-block attention (one 512-wide head over 16384 tokens):
+    its device time and the memory it adds at its peak."""
+    x = randn((2, XL_SIZE, XL_SIZE, 256), torch.bfloat16, 40)
+    gamma = (1 + 0.1 * randn((256,), torch.float32, 41)).to(torch.bfloat16)
+    beta = (0.1 * randn((256,), torch.float32, 42)).to(torch.bfloat16)
+    gn_b2 = check_gn(x, gamma, beta, 32, True, errs, "sdxl vae [2,1024,1024,256]")
+    row = gn.fused_group_norm_silu(x[1:].contiguous(), gamma, beta, groups=32)
+    expect(torch.equal(gn.fused_group_norm_silu(x, gamma, beta, groups=32)[1:], row),
+           "GroupNorm batch-2 row differs from its solo run")
+    del x, row
+    torch.cuda.empty_cache()
+    n = (XL_SIZE // 8) ** 2
+    q, k, v = (randn((1, n, 1, 512), torch.bfloat16, 43 + i) for i in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    attention.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    ms = device_ms(lambda: attention.dot_product_attention(q, k, v), 3)
+    return {"gn_batch2_check": gn_b2,
+            "vae_mid_attention": {"shape": [1, n, 1, 512], "plain_ms": ms,
+                                  "peak_extra_bytes": extra}}
+
+
+def sdxl_phase(errs) -> tuple:
+    """Phase 7. Returns (per-request kernel rows, launches, the sdxl line)."""
+    t0 = time.perf_counter()
+    pipe = LCMPipeline(random_bundle("sdxl", seed=0, device="cuda"), dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    worker = CudaPipelineWorker(pipe)
+    setup_s = time.perf_counter() - t0
+    seen = census(pipe, XL_SIZE)
+    gn_calls = sum(c for k, c in seen.items() if k[0] == "gn")
+    per_request = {"flash": sum(c for k, c in seen.items() if k[0] == "flash"),
+                   "gn": gn_calls, "gn_stats": gn_calls, "gn_apply": gn_calls}
+    log({"sdxl_setup_s": setup_s, "launches_per_request": per_request,
+         "census": [[list(k[1]), k[2], n] for k, n in sorted(seen.items())]})
+    want = {"flash": XL_PER_REQUEST["flash"], "gn": XL_PER_REQUEST["gn"],
+            "gn_stats": XL_PER_REQUEST["gn"], "gn_apply": XL_PER_REQUEST["gn"]}
+    expect(per_request == want, f"SDXL census {per_request}, expected {want}")
+    end_phase("sdxl census")
+
+    t0 = time.perf_counter()
+    rows = time_kernels(seen, torch.bfloat16, errs)
+    extremes = check_sdxl_extremes(errs)
+    log({"sdxl_timing_s": time.perf_counter() - t0, "per_request_ms": rows, **extremes})
+    end_phase("sdxl kernel checks")
+
+    spec = lambda seed, **kw: GenSpec(f"a castle on a hill, seed {seed}",
+                                      size=f"{XL_SIZE}x{XL_SIZE}", num_inference_steps=STEPS,
+                                      seed=seed, **kw)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    latency, pngs = [], {}
+    for seed in range(1, XL_LATENCY_SAMPLES):
+        t1 = time.perf_counter()
+        pngs[seed] = worker.run_job(spec(seed))[0]
+        latency.append(time.perf_counter() - t1)
+        check_png(pngs[seed], XL_SIZE)
+    t1 = time.perf_counter()
+    expect(worker.run_job(spec(1))[0] == pngs[1], "SDXL: same seed gives identical PNG bytes")
+    latency.append(time.perf_counter() - t1)
+    launches = counts()  # the kernels line's SDXL launches
+    expect(launches == {k: XL_LATENCY_SAMPLES * v for k, v in per_request.items()},
+           f"SDXL requests launched {launches}, expected {XL_LATENCY_SAMPLES} x {per_request}")
+
+    cfg_spec = spec(7, guidance_scale=2.0, negative_prompt="blurry, low quality")
+    expect(pipe.cfg_mode(cfg_spec.guidance_scale) == "cfg", "guidance 2.0 is not the cfg mode")
+    reset_counts()
+    t1 = time.perf_counter()
+    cfg_png = worker.run_job(cfg_spec)[0]
+    cfg_s = time.perf_counter() - t1
+    check_png(cfg_png, XL_SIZE)
+    expect(counts() == per_request, f"SDXL cfg request launched {counts()}, "
+                                    f"expected {per_request}")
+    expect(cfg_png != worker.run_job(spec(7, guidance_scale=2.0))[0],
+           "SDXL cfg: the negative prompt changed nothing")
+
+    batches = {}
+    for mode, (g, negs) in {"none": ((1.0, 0.5), (None, None)),
+                            "cfg": ((2.0, 5.0), ("blurry", None))}.items():
+        specs = [spec(30 + i, guidance_scale=gi, negative_prompt=ni)
+                 for i, (gi, ni) in enumerate(zip(g, negs))]
+        expect(worker.batchable(*specs), f"SDXL {mode} specs not batchable")
+        reset_counts()
+        t1 = time.perf_counter()
+        out = worker.run_jobs(specs)
+        batch_s = time.perf_counter() - t1
+        expect(counts() == per_request, f"SDXL run_jobs {mode} launched {counts()}")
+        same = [png == worker.run_job(s)[0] for (png, _), s in zip(out, specs)]
+        expect(all(same), f"SDXL {mode}: batch rows vs solo runs identical: {same}")
+        batches[mode] = {"batch2_s": batch_s, "rows_identical_to_solo": same}
+    peak = torch.cuda.max_memory_allocated()
+    requests_s = time.perf_counter() - t0
+    end_phase("sdxl requests")
+
+    prof = profile(lambda: worker.run_job(spec(60)))
+    log({"profile_sdxl_batch1": prof})
+    lat_ms = [1e3 * t for t in latency]
+    line = {"sdxl": {
+        "card": smi_line(), "host_cpu": host_cpu(), "size": XL_SIZE, "steps": STEPS,
+        "p50_ms_batch1": statistics.median(lat_ms), "min_ms_batch1": min(lat_ms),
+        "max_ms_batch1": max(lat_ms), "latency_ms_batch1": lat_ms,
+        "cfg_request_ms": 1e3 * cfg_s, "run_jobs_2": batches,
+        "kernel_ms_per_request": prof["device_busy_ms"],
+        "kernel_launches_per_request": prof["kernel_launches"],
+        "busy_share": prof["busy_share"], "port_kernels": prof["port_kernels"],
+        "port_launches_per_request": per_request,
+        "flash_ms_per_request": rows["flash"]["ms"], "gn_ms_per_request": rows["gn"]["ms"],
+        "peak_memory_bytes": peak, "requests_s": requests_s,
+        "vae_mid_attention": extremes["vae_mid_attention"]}}
+    del worker, pipe
+    torch.cuda.empty_cache()
+    return rows, launches, line
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the probes (K4, K5, K6) of dreamlab_tpu_torch/scripts
 # ---------------------------------------------------------------------------
 
 K5_LANES = (ab_attention_layout.LANES, ab_attention_layout.D)
@@ -625,7 +818,7 @@ def probe_counts() -> dict:
 
 
 def probes(errs) -> tuple:
-    """Phase 6. Returns (kernel entries for the kernels line, probes line)."""
+    """Phase 8. Returns (kernel entries for the kernels line, probes line)."""
     t0 = time.perf_counter()
     check_probes_fp32()
     end_phase("probe checks")
@@ -690,13 +883,52 @@ def probes(errs) -> tuple:
     return entries, line
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def kernel_entries(rows, launches, errs, suffix="",
+                   keys=("flash", "gn_stats", "gn_apply", "gn")) -> list:
+    """The kernels line's entries of one path: K1, and K2, K3 and K2+K3 (the
+    fused call the paths run; K2 and K3 alone are checked at fixed shapes)."""
+    sources = {
+        "flash": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
+                  "dreamlab_tpu/ops/flash_attention.py:52"),
+        "gn_stats": ("dreamlab_tpu_torch/csrc/groupnorm.cu",
+                     "dreamlab_tpu/ops/groupnorm.py:30"),
+        "gn_apply": ("dreamlab_tpu_torch/csrc/groupnorm.cu",
+                     "dreamlab_tpu/ops/groupnorm.py:36"),
+        # K2 + K3 as the main path runs them: one cluster-kernel launch per call
+        "gn": ("dreamlab_tpu_torch/csrc/groupnorm.cu", "dreamlab_tpu/ops/groupnorm.py:47"),
+    }
+    names = {"gn": "group_norm_silu"}
+    limits = {"flash": (TOL_BF16_P, errs["flash_beyond"]), "gn": (TOL_BF16, errs["gn_beyond"])}
+    kernels = []
+    for name in keys:
+        src, replaces = sources[name]
+        r = rows[name]
+        kernels.append({
+            "name": names.get(name, name) + suffix, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["bound_operations_ms"] > r["bound_bytes_ms"]
+            else "bytes",
+            "library_ms": r["library_ms"],
+            **({"beyond_rounding_limit": limits[name][0],
+                "max_beyond_rounding": limits[name][1]} if name in limits else {}),
+        })
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -757,35 +989,23 @@ def main() -> int:
     del worker, pipe
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    loaded = loader_phase(per_request)
+    end_phase("loader")
+    log({"loader": {**loaded, "phase_s": time.perf_counter() - t0, "card": smi}})
+
+    t0 = time.perf_counter()
+    xl_errs = collections.defaultdict(float)
+    xl_rows, xl_launches, xl_line = sdxl_phase(xl_errs)
+    end_phase("sdxl")
+    xl_line["sdxl"]["phase_s"] = time.perf_counter() - t0
+    log(xl_line)
+
     probe_entries, probe_line = probes(errs)
     log(probe_line)
 
-    sources = {
-        "flash": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
-                  "dreamlab_tpu/ops/flash_attention.py:52"),
-        "gn_stats": ("dreamlab_tpu_torch/csrc/groupnorm.cu",
-                     "dreamlab_tpu/ops/groupnorm.py:30"),
-        "gn_apply": ("dreamlab_tpu_torch/csrc/groupnorm.cu",
-                     "dreamlab_tpu/ops/groupnorm.py:36"),
-        # K2 + K3 as the main path runs them: one cluster-kernel launch per call
-        "gn": ("dreamlab_tpu_torch/csrc/groupnorm.cu", "dreamlab_tpu/ops/groupnorm.py:47"),
-    }
-    names = {"gn": "group_norm_silu"}
-    limits = {"flash": (TOL_BF16_P, errs["flash_beyond"]), "gn": (TOL_BF16, errs["gn_beyond"])}
-    kernels = []
-    for name, (src, replaces) in sources.items():
-        r = rows[name]
-        kernels.append({
-            "name": names.get(name, name), "route": "cuda", "source": src,
-            "replaces": replaces, "launches": result["launches"][name],
-            "max_abs_err": errs[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "operations" if r["bound_operations_ms"] > r["bound_bytes_ms"]
-            else "bytes",
-            "library_ms": r["library_ms"],
-            **({"beyond_rounding_limit": limits[name][0],
-                "max_beyond_rounding": limits[name][1]} if name in limits else {}),
-        })
+    kernels = (kernel_entries(rows, result["launches"], errs)
+               + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn")))
     log({"kernels": kernels + probe_entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

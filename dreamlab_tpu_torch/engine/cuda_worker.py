@@ -5,7 +5,9 @@ One worker owns one loaded ``LCMPipeline`` and implements the
 ``run_job_with_latents`` with the [1, 4, 8, 8] float16 fingerprint
 (512 bytes), plus the pool's coalescing interface ``batchable`` /
 ``run_jobs``. Batching never changes a request's output: each row's noise
-comes from its own seed, as in a solo run.
+comes from its own seed, as in a solo run, its guidance and negative prompt
+are its own, and the library calls run one row at a time
+(``ops/batching.py``), the doubled batch of classic CFG included.
 
 Styles (LoRA), the refiner, ControlNet, progress callbacks and img2img come
 with later slices; a spec that asks for one is refused with ``ValueError``.
@@ -68,7 +70,9 @@ class CudaPipelineWorker:
                 spec.prompt, height=height, width=width,
                 num_inference_steps=spec.num_inference_steps,
                 original_inference_steps=spec.original_inference_steps,
-                guidance_scale=spec.guidance_scale, seed=seed,
+                guidance_scale=spec.guidance_scale,
+                negative_prompt=spec.negative_prompt, seed=seed,
+                aesthetic_score=spec.aesthetic_score,
             )
 
     def run_job(self, spec: GenSpec) -> Tuple[bytes, int]:
@@ -81,17 +85,25 @@ class CudaPipelineWorker:
         return encode_png(res.images[0]), res.seed, latents_to_fingerprint(res.latents)
 
     def batchable(self, a: GenSpec, b: GenSpec) -> bool:
-        """Specs that can share one batched call: same shape, schedule and
-        style, and nothing that must run solo. Guidance and negative prompts
-        differ per row freely (LCM guidance rides the per-row w-embedding)."""
-        return (
+        """Specs that can share one batched call: same shape, schedule,
+        style and guidance *mode*, and nothing that must run solo. Guidance
+        values and negative prompts differ per row freely (LCM guidance
+        rides the per-row w-embedding, classic CFG mixes per row). The mode
+        is the boundary: guidance 1 through the CFG mix is not bit-equal to
+        the cond-only call, so a g <= 1 row never joins a g > 1 batch on a
+        non-LCM UNet."""
+        if not (
             a.size == b.size
             and a.num_inference_steps == b.num_inference_steps
             and a.original_inference_steps == b.original_inference_steps
             and (a.style, a.style_level) == (b.style, b.style_level)
+            and a.aesthetic_score == b.aesthetic_score
             and a.progress_cb is None and b.progress_cb is None
             and a.control_image is None and b.control_image is None
-        )
+        ):
+            return False
+        return self.pipeline.cfg_mode(a.guidance_scale) == self.pipeline.cfg_mode(
+            b.guidance_scale)
 
     def run_jobs(self, specs) -> List[Tuple[bytes, int]]:
         """Coalesced execution: one batched call for compatible specs.
@@ -119,7 +131,9 @@ class CudaPipelineWorker:
                 num_inference_steps=steps,
                 original_inference_steps=first.original_inference_steps,
                 guidance_scale=[float(s.guidance_scale) for s in specs],
+                negative_prompt=[s.negative_prompt or "" for s in specs],
                 seed=seeds[0],
+                aesthetic_score=first.aesthetic_score,
                 latents=np.stack(lats),  # raw noise; generate applies the init sigma
                 step_noises=np.stack(noises, axis=1),
             )

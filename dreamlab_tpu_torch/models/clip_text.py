@@ -1,8 +1,10 @@
-"""CLIP text encoder, SD1.5 branch (port of ``dreamlab_tpu/models/clip_text.py``).
+"""CLIP text encoder (port of ``dreamlab_tpu/models/clip_text.py``).
 
-OpenAI CLIP ViT-L/14: quick_gelu, causal self-attention over 77 tokens,
-final LayerNorm, pooled output at the EOS position. The SDXL branches
-(penultimate state, text projection) come with the SDXL slice.
+Both text towers of the checkpoints served: OpenAI CLIP ViT-L/14 (SD1.5 and
+SDXL's first tower; quick_gelu) and OpenCLIP ViT-bigG (SDXL's second tower;
+exact gelu, text projection). Causal self-attention over 77 tokens, final
+LayerNorm, pooled output at the EOS position; SDXL reads the penultimate
+layer's raw state as its sequence output.
 """
 
 from __future__ import annotations
@@ -15,10 +17,13 @@ from .layers import (
     init_embedding,
     init_linear,
     init_norm,
+    gelu,
     layer_norm,
     linear,
     quick_gelu,
 )
+
+_ACTS = {"quick_gelu": quick_gelu, "gelu": gelu}
 
 
 def _self_attention(p, x, mask, num_heads):
@@ -43,21 +48,21 @@ def _encoder_layer(p, x, mask, cfg: CLIPTextConfig):
     h = layer_norm(p["ln1"], x, eps=cfg.layer_norm_eps)
     x = x + _self_attention(p["attn"], h, mask, cfg.num_heads)
     h = layer_norm(p["ln2"], x, eps=cfg.layer_norm_eps)
-    h = linear(p["fc2"], quick_gelu(linear(p["fc1"], h)))
+    h = linear(p["fc2"], _ACTS[cfg.hidden_act](linear(p["fc1"], h)))
     return x + h
 
 
 def encode_text(params, input_ids, cfg: CLIPTextConfig):
     """Run the text tower on int [B, 77] ids.
 
-    Returns (hidden_states [B, 77, C], pooled [B, C]): the final layer-normed
-    sequence and its embedding at the EOS position, found by equality with
-    the vocabulary's last id (not argmax: textual-inversion ids sit beyond
-    the base vocabulary).
+    Returns (hidden_states [B, 77, C], pooled [B, C or projection_dim]):
+    the final layer-normed sequence, or with ``penultimate`` the second-to-
+    last layer's raw state (SDXL; layer-normed with ``penultimate_ln``,
+    SD2.x), and the final normed state's embedding at the EOS position,
+    text-projected where the tower has a projection. EOS is found by
+    equality with the vocabulary's last id (not argmax: textual-inversion
+    ids sit beyond the base vocabulary).
     """
-    if cfg.penultimate or cfg.projection_dim is not None or cfg.hidden_act != "quick_gelu":
-        raise ValueError("this port runs the SD1.5 text tower only; the SDXL "
-                         "branches come with the SDXL slice")
     b, n = input_ids.shape
     pos = torch.arange(n, device=input_ids.device)
     tok = params["token_embedding"]["w"]
@@ -65,13 +70,21 @@ def encode_text(params, input_ids, cfg: CLIPTextConfig):
 
     causal = torch.full((n, n), -1e9, dtype=torch.float32,
                         device=input_ids.device).triu(1)[None, None]
+    penultimate = x
     for layer_p in params["layers"]:
+        penultimate = x
         x = _encoder_layer(layer_p, x, causal, cfg)
     final = layer_norm(params["final_ln"], x, eps=cfg.layer_norm_eps)
 
     eos_idx = (input_ids == cfg.vocab_size - 1).int().argmax(dim=-1)
     pooled = final[torch.arange(b, device=input_ids.device), eos_idx]
-    return final, pooled
+    if cfg.projection_dim is not None:
+        pooled = linear(params["text_projection"], pooled)
+    if not cfg.penultimate:
+        return final, pooled
+    if cfg.penultimate_ln:
+        penultimate = layer_norm(params["final_ln"], penultimate, eps=cfg.layer_norm_eps)
+    return penultimate, pooled
 
 
 def init_params(cfg: CLIPTextConfig, gen: torch.Generator):
@@ -86,9 +99,12 @@ def init_params(cfg: CLIPTextConfig, gen: torch.Generator):
             "fc2": init_linear(gen, ff, c),
         }
 
-    return {
+    params = {
         "token_embedding": init_embedding(gen, cfg.vocab_size, c),
         "position_embedding": init_embedding(gen, cfg.max_position_embeddings, c),
         "layers": [layer() for _ in range(cfg.num_layers)],
         "final_ln": init_norm(gen, c),
     }
+    if cfg.projection_dim is not None:
+        params["text_projection"] = init_linear(gen, c, cfg.projection_dim, bias=False)
+    return params

@@ -1,4 +1,4 @@
-"""Model architecture configs: the SD1.5 presets and their tiny test variants.
+"""Model architecture configs: the SD1.5 and SDXL presets and their tiny test variants.
 
 A copy of the dataclasses of ``dreamlab_tpu/models/configs.py`` (importing
 that module pulls in JAX through ``dreamlab_tpu/models/__init__.py``). The
@@ -93,6 +93,33 @@ SD15_UNET = UNetConfig()
 
 SD15_VAE = VAEConfig()
 
+SDXL_TEXT_L = CLIPTextConfig(penultimate=True)  # CLIP ViT-L, hidden 768
+
+SDXL_TEXT_BIGG = CLIPTextConfig(
+    vocab_size=49408,
+    hidden_size=1280,
+    num_layers=32,
+    num_heads=20,
+    intermediate_size=5120,
+    hidden_act="gelu",
+    penultimate=True,
+    projection_dim=1280,
+)
+
+SDXL_UNET = UNetConfig(
+    block_out_channels=(320, 640, 1280),
+    transformer_layers_per_block=(0, 2, 10),
+    num_attention_heads=(5, 10, 20),
+    cross_attention_dim=2048,
+    time_cond_proj_dim=None,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816,
+    mid_block_transformer_layers=10,
+)
+
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)
+
 # Tiny presets: same topology, toy widths — used by the CPU test suite.
 TINY_TEXT = CLIPTextConfig(
     vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
@@ -107,6 +134,20 @@ TINY_UNET = UNetConfig(
     cross_attention_dim=32,
     norm_groups=8,
     time_cond_proj_dim=8,
+    mid_block_transformer_layers=1,
+)
+
+TINY_UNET_XL = UNetConfig(
+    block_out_channels=(32, 64),
+    layers_per_block=1,
+    transformer_layers_per_block=(0, 2),
+    num_attention_heads=(2, 2),
+    cross_attention_dim=64,
+    norm_groups=8,
+    time_cond_proj_dim=None,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=8,
+    projection_class_embeddings_input_dim=32 + 6 * 8,  # pooled 32 + 6 time_ids
     mid_block_transformer_layers=1,
 )
 

@@ -78,6 +78,11 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu(x):
+    """Exact (erf) GELU, the activation of OpenCLIP's bigG text tower."""
+    return F.gelu(x, approximate="none")
+
+
 def geglu(params, x):
     """Gated GELU (exact) of the UNet transformer FFN: project to 2*d, gate."""
     a, g = linear(params, x).chunk(2, dim=-1)

@@ -1,14 +1,17 @@
-"""Conditional diffusion UNet, SD1.5 branch, NHWC (port of ``dreamlab_tpu/models/unet.py``).
+"""Conditional diffusion UNet, SD1.5 and SDXL, NHWC (port of ``dreamlab_tpu/models/unet.py``).
 
 The same block structure and parameter tree as the JAX package: resnets
 open with GroupNorm+SiLU (the CUDA kernels on the card), spatial
 self-attention dispatches through ``ops.attention`` (the flash kernel at the
 4096- and 1024-token levels), convs and matmuls go to cuDNN and cuBLAS.
+SDXL adds its ``text_time`` micro-conditioning to the time embedding; its
+10-deep transformer stacks and attention-free first level are the same
+code with other config values.
 
 q/k/v stay three projections: the JAX package packs them into one matmul
 (``pack_attention_params``) to suit the TPU's placement; whether packing
-pays on the card is not measured yet. SDXL's micro-conditioning and
-ControlNet's residual taps come with their slices.
+pays on the card is not measured yet. ControlNet's residual taps come with
+its slice.
 """
 
 from __future__ import annotations
@@ -82,8 +85,9 @@ def _spatial_transformer(p, x, context, *, heads, groups, impl="auto"):
 
 
 def time_embed(params, cfg: UNetConfig, timesteps, timestep_cond: Optional[torch.Tensor],
-               dtype):
-    """Combined time / LCM-w embedding [B, temb]."""
+               added_text_embeds: Optional[torch.Tensor],
+               added_time_ids: Optional[torch.Tensor], dtype):
+    """Combined time / LCM-w / SDXL micro-conditioning embedding [B, temb]."""
     t_emb = timestep_embedding(
         timesteps, cfg.block_out_channels[0],
         flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift,
@@ -92,7 +96,18 @@ def time_embed(params, cfg: UNetConfig, timesteps, timestep_cond: Optional[torch
         t_emb = t_emb + linear(params["time_embedding"]["cond_proj"],
                                timestep_cond.to(dtype))
     emb = linear(params["time_embedding"]["linear_1"], t_emb)
-    return linear(params["time_embedding"]["linear_2"], silu(emb))
+    emb = linear(params["time_embedding"]["linear_2"], silu(emb))
+    if cfg.addition_embed_type == "text_time":
+        # pooled text embedding beside the Fourier features of the six (five
+        # for the refiner) size/crop ids, concatenated in fp32, then cast
+        time_ids_emb = timestep_embedding(
+            added_time_ids.reshape(-1), cfg.addition_time_embed_dim,
+            flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift,
+        ).reshape(added_time_ids.shape[0], -1)
+        add = torch.cat([added_text_embeds.float(), time_ids_emb], dim=-1).to(dtype)
+        a = linear(params["add_embedding"]["linear_1"], add)
+        emb = emb + linear(params["add_embedding"]["linear_2"], silu(a))
+    return emb
 
 
 def down_blocks(params, cfg: UNetConfig, x, emb, context):
@@ -125,19 +140,25 @@ def mid_block(params, cfg: UNetConfig, x, emb, context):
 
 
 def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
-            timestep_cond=None):
+            timestep_cond=None, added_text_embeds=None, added_time_ids=None):
     """Predict noise for ``sample`` [B, H, W, 4] at ``timesteps`` [B].
 
     encoder_hidden_states: [B, 77, cross_attention_dim] text conditioning.
     timestep_cond: [B, time_cond_proj_dim] LCM guidance embedding (w).
+    added_text_embeds / added_time_ids: SDXL micro-conditioning
+    ([B, pooled_dim], [B, 6] or [B, 5] for the refiner).
     Returns fp32 [B, H, W, 4].
     """
-    if cfg.addition_embed_type is not None:
-        raise ValueError("SDXL micro-conditioning comes with the SDXL slice")
+    if cfg.addition_embed_type not in (None, "text_time"):
+        raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r} is not served")
+    if cfg.addition_embed_type == "text_time" and (added_text_embeds is None
+                                                   or added_time_ids is None):
+        raise ValueError("a text_time UNet needs added_text_embeds and added_time_ids")
     dtype = params["conv_in"]["w"].dtype
     x = sample.to(dtype)
     context = encoder_hidden_states.to(dtype)
-    emb = time_embed(params, cfg, timesteps, timestep_cond, dtype)
+    emb = time_embed(params, cfg, timesteps, timestep_cond, added_text_embeds,
+                     added_time_ids, dtype)
 
     x = conv2d(params["conv_in"], x)
     x, skips = down_blocks(params, cfg, x, emb, context)
@@ -219,6 +240,11 @@ def init_params(cfg: UNetConfig, gen: torch.Generator):
     if cfg.time_cond_proj_dim is not None:
         params["time_embedding"]["cond_proj"] = init_linear(
             gen, cfg.time_cond_proj_dim, chans[0], bias=False)
+    if cfg.addition_embed_type == "text_time":
+        params["add_embedding"] = {
+            "linear_1": init_linear(gen, cfg.projection_class_embeddings_input_dim, temb),
+            "linear_2": init_linear(gen, temb, temb),
+        }
 
     down, skip_chans, cur = [], [chans[0]], chans[0]
     for i, cout in enumerate(chans):

@@ -14,9 +14,11 @@ from .flash_attention import attention_plain, flash_attention
 
 def _flash_supported(q, k) -> bool:
     """The JAX package's shape rule, keyed on the tensor's device: the UNet's
-    spatial self-attention at N = 4096 (d = 40) and N = 1024 (d = 80) takes the
-    kernel; cross-attention (77 keys), the d = 160 level and the VAE's
-    single d = 512 head take the plain path."""
+    spatial self-attention takes the kernel. SD1.5 at 512²: N = 4096 (d = 40)
+    and N = 1024 (d = 80). SDXL at 1024²: N = 4096 with 10 heads and N = 1024
+    with 20 heads, both d = 64 (its first level has no attention).
+    Cross-attention (77 keys), SD1.5's d = 160 level and the VAE's single
+    d = 512 head take the plain path."""
     if not q.is_cuda:
         return False
     n, m, d = q.shape[1], k.shape[1], q.shape[3]

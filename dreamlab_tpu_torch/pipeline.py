@@ -1,15 +1,27 @@
 """txt2img pipeline on PyTorch (port of ``dreamlab_tpu/pipeline.py::LCMPipeline``).
 
-The main path of the JAX package's program (``pipeline.py`` ``_build``:
-``encode`` -> ``lax.scan`` of UNet + LCM step -> VAE decode -> uint8) as
-eager PyTorch: CLIP encode, a Python loop of ``unet.forward`` +
-``lcm_step``, ``vae.decode(denoised / scaling_factor)``, clip, round, uint8.
+The JAX package's program (``pipeline.py`` ``_build``: ``encode`` ->
+``lax.scan`` of UNet + LCM step -> VAE decode -> uint8) as eager PyTorch:
+CLIP encode, a Python loop of ``unet.forward`` + ``lcm_step``,
+``vae.decode(denoised / scaling_factor)``, clip, round, uint8.
 
-This slice serves LCM checkpoints (guidance as the w-embedding,
-``cfg_mode="wcond"``) with host-side noise (``rng_mode="host"``): latents
-and per-step noise come from ``np.random.RandomState(seed)`` in NCHW and are
-transposed, exactly as in the JAX package, so a seed gives the same noise in
-both. Classic CFG, SDXL, device RNG, segments and callbacks come later.
+SD1.5 and SDXL checkpoints. SDXL encodes with two text towers (the
+sequences concatenated, the pooled embedding from the second) and
+conditions the UNet on micro-conditioning ids as well; a refiner-layout
+checkpoint has the second tower only. Guidance takes one of three modes,
+chosen per call as in the JAX package:
+
+- ``wcond``: the UNet has ``time_cond_proj_dim`` (LCM checkpoints, SD1.5
+  or SDXL); guidance conditions it through the w-embedding, no CFG.
+- ``cfg``: classic classifier-free guidance when a row's guidance exceeds
+  1: one UNet call on the doubled batch (negatives, then prompts) per step,
+  mixed per row as ``uncond + g * (cond - uncond)``.
+- ``none``: guidance <= 1 on a non-LCM UNet (SDXL with an LCM-LoRA merged).
+
+Noise comes from the host (``rng_mode="host"``): latents and per-step noise
+from ``np.random.RandomState(seed)`` in NCHW, transposed, exactly as in the
+JAX package, so a seed gives the same noise in both. Device RNG, segments
+(the refiner ensemble), img2img and callbacks come later.
 """
 
 from __future__ import annotations
@@ -31,13 +43,16 @@ from .scheduler.lcm import (
 )
 from .utils.tokenizer import CLIPTokenizer
 
+# the refiner's uncond-branch aesthetic score (diffusers' default)
+NEGATIVE_AESTHETIC_SCORE = 2.5
+
 
 @dataclasses.dataclass
 class PipelineBundle:
-    """Everything a worker needs to serve one SD1.5 checkpoint: configs and
-    parameter trees (dicts of tensors, ``convert`` / ``testing`` layout)."""
+    """Everything a worker needs to serve one checkpoint: configs, tokenizers
+    and parameter trees (dicts of tensors, ``loader`` / ``testing`` layout)."""
 
-    arch: str  # "sd15"
+    arch: str  # "sd15" | "sdxl"
     tokenizer: CLIPTokenizer
     text_cfg: CLIPTextConfig
     text_params: Dict
@@ -46,6 +61,11 @@ class PipelineBundle:
     vae_cfg: VAEConfig
     vae_params: Dict
     scheduler_cfg: LCMConfig
+    # SDXL's second (OpenCLIP bigG) tower; None for SD1.5 and the refiner
+    tokenizer_2: Optional[CLIPTokenizer] = None
+    text_cfg_2: Optional[CLIPTextConfig] = None
+    text_params_2: Optional[Dict] = None
+    model_dir: Optional[str] = None  # where the loader read it; None in memory
 
 
 @dataclasses.dataclass
@@ -65,12 +85,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _place_params(tree, dtype: torch.dtype, device: torch.device):
-    """Cast floating leaves to ``dtype`` on ``device``; conv weights (4-D)
-    go channels_last, the layout of the NHWC activations (models/layers.py)."""
+    """Cast floating leaves to ``dtype`` on ``device`` (None, an absent tree,
+    stays None); conv weights (4-D) go channels_last, the layout of the NHWC
+    activations (models/layers.py)."""
     if isinstance(tree, dict):
         return {k: _place_params(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_place_params(v, dtype, device) for v in tree]
+    if tree is None:
+        return None
     t = tree.to(device=device, dtype=dtype if tree.is_floating_point() else tree.dtype)
     if t.ndim == 4:
         t = t.contiguous(memory_format=torch.channels_last)
@@ -81,7 +104,10 @@ class LCMPipeline:
     """Serving pipeline for one loaded checkpoint.
 
     Args:
-        bundle: configs + parameter trees.
+        bundle: configs, tokenizers + parameter trees. The pipeline keeps
+            the configs and tokenizers (``self.bundle``, parameter trees
+            dropped) and its own copies of the trees, cast and placed, so
+            the caller's copies can be freed.
         dtype: compute/param dtype (bf16, as in the JAX package).
         device: None = the CUDA device (raises if there is none); "cpu" runs
             every kernel's plain version.
@@ -89,18 +115,55 @@ class LCMPipeline:
 
     def __init__(self, bundle: PipelineBundle, *, dtype: torch.dtype = torch.bfloat16,
                  device=None):
-        if bundle.arch != "sd15" or bundle.unet_cfg.time_cond_proj_dim is None:
-            raise ValueError("this port serves SD1.5 LCM checkpoints; classic CFG "
-                             "and SDXL come with later slices")
-        self.bundle = bundle
+        if bundle.arch not in ("sd15", "sdxl"):
+            raise ValueError(f"unknown arch {bundle.arch!r}")
         self.dtype = dtype
         self.device = resolve_device(device)
         self.text_params = _place_params(bundle.text_params, dtype, self.device)
+        self.text_params_2 = _place_params(bundle.text_params_2, dtype, self.device)
         self.unet_params = _place_params(bundle.unet_params, dtype, self.device)
         self.vae_params = _place_params(bundle.vae_params, dtype, self.device)
+        self.bundle = dataclasses.replace(bundle, text_params=None, text_params_2=None,
+                                          unet_params=None, vae_params=None)
         self.vae_scale = bundle.vae_cfg.scale_factor
         self.latent_channels = bundle.vae_cfg.latent_channels
         self._schedules: Dict[Tuple, LCMSchedule] = {}
+
+    def cfg_mode(self, guidance_scale) -> str:
+        """'wcond' for an LCM UNet (guidance as the w-embedding), else 'cfg'
+        when any row's guidance exceeds 1, else 'none'."""
+        if self.bundle.unet_cfg.time_cond_proj_dim is not None:
+            return "wcond"
+        return "cfg" if float(np.max(guidance_scale)) > 1.0 else "none"
+
+    def _micro_cond_ids(self) -> int:
+        """SDXL micro-conditioning id count, from the UNet config (its add
+        embedding takes pooled_dim + n_ids x addition_time_embed_dim): 6 for
+        base models (original size, crop, target size), 5 for the refiner
+        (original size, crop, aesthetic score)."""
+        b = self.bundle
+        cfg = b.unet_cfg
+        pooled_dim = (b.text_cfg_2.projection_dim if b.text_cfg_2 is not None
+                      else b.text_cfg.projection_dim) or 0
+        if cfg.projection_class_embeddings_input_dim and cfg.addition_time_embed_dim:
+            return ((cfg.projection_class_embeddings_input_dim - pooled_dim)
+                    // cfg.addition_time_embed_dim)
+        return 6
+
+    def _time_ids(self, height: int, width: int, bsz: int, aesthetic_score: float = 6.0,
+                  cfg_mode: str = "none") -> np.ndarray:
+        """SDXL micro-conditioning ids: [B, n], or [2, B, n] in cfg mode with
+        row 0 the uncond branch (the negative aesthetic score for refiners,
+        diffusers' requires_aesthetics_score convention)."""
+        if self._micro_cond_ids() == 5:
+            cond = [height, width, 0, 0, aesthetic_score]
+            uncond = [height, width, 0, 0, NEGATIVE_AESTHETIC_SCORE]
+        else:
+            cond = [height, width, 0, 0, height, width]
+            uncond = cond
+        if cfg_mode == "cfg":
+            return np.asarray([[uncond] * bsz, [cond] * bsz], np.float32)
+        return np.asarray([cond] * bsz, np.float32)
 
     def _schedule(self, steps: int, original_steps: Optional[int]) -> LCMSchedule:
         key = (steps, original_steps)
@@ -120,18 +183,40 @@ class LCMPipeline:
         noises = noises.transpose(0, 1, 3, 4, 2)
         return np.ascontiguousarray(lat), np.ascontiguousarray(noises)
 
+    def _encode(self, texts):
+        """Text conditioning of ``texts``: (context [B, 77, C], pooled [B, P]
+        or None)."""
+        b = self.bundle
+        dev = self.device
+        ids = torch.from_numpy(b.tokenizer(texts)).to(dev, torch.int64)
+        if b.arch != "sdxl":
+            return clip_text.encode_text(self.text_params, ids, b.text_cfg)[0], None
+        if self.text_params_2 is None:
+            # refiner layout: the one bigG tower gives the context and the
+            # projected pooled embedding of the micro-conditioning
+            return clip_text.encode_text(self.text_params, ids, b.text_cfg)
+        ids_2 = torch.from_numpy(b.tokenizer_2(texts)).to(dev, torch.int64)
+        seq1, _ = clip_text.encode_text(self.text_params, ids, b.text_cfg)
+        seq2, pooled = clip_text.encode_text(self.text_params_2, ids_2, b.text_cfg_2)
+        return torch.cat([seq1, seq2], dim=-1), pooled
+
     def generate(self, prompt, *, height: int = 512, width: int = 512,
                  num_inference_steps: int = 4,
                  original_inference_steps: Optional[int] = None,
-                 guidance_scale: Any = 1.0, seed: Optional[int] = None,
-                 batch: Optional[int] = None, latents: Optional[np.ndarray] = None,
-                 step_noises: Optional[np.ndarray] = None) -> GenerationResult:
+                 guidance_scale: Any = 1.0, negative_prompt: Any = None,
+                 seed: Optional[int] = None, batch: Optional[int] = None,
+                 latents: Optional[np.ndarray] = None,
+                 step_noises: Optional[np.ndarray] = None,
+                 aesthetic_score: float = 6.0) -> GenerationResult:
         """Generate images: uint8 [B, H, W, 3] plus the final latents.
 
-        guidance_scale: a scalar or one value per row; it conditions the UNet
-        through the LCM w-embedding. latents / step_noises: explicit raw
-        initial noise [B, h, w, 4] and per-step noise [S, B, h, w, 4] (the
-        worker's coalesced batches give each row its own seed's noise).
+        guidance_scale: a scalar or one value per row; it picks the guidance
+        mode (``cfg_mode``) and weighs each row. negative_prompt: None (""),
+        one string, or one per row; read in cfg mode only. latents /
+        step_noises: explicit raw initial noise [B, h, w, 4] and per-step
+        noise [S, B, h, w, 4] (the worker's coalesced batches give each row
+        its own seed's noise). aesthetic_score: the refiner's
+        micro-conditioning.
         """
         b = self.bundle
         divisor = self.vae_scale * 2 ** (b.unet_cfg.num_blocks - 1)
@@ -150,6 +235,11 @@ class LCMPipeline:
             gs = np.full((bsz,), float(gs[0]), np.float32)
         elif gs.size != bsz:
             raise ValueError(f"guidance_scale has {gs.size} entries for batch {bsz}")
+        mode = self.cfg_mode(gs)
+        neg = negative_prompt
+        negs = [""] * bsz if neg is None else [neg] * bsz if isinstance(neg, str) else list(neg)
+        if len(negs) != bsz:
+            raise ValueError(f"negative_prompt has {len(negs)} entries for batch {bsz}")
 
         schedule = self._schedule(num_inference_steps, original_inference_steps)
         h_lat, w_lat = height // self.vae_scale, width // self.vae_scale
@@ -165,21 +255,35 @@ class LCMPipeline:
             want = (num_inference_steps, bsz, h_lat, w_lat, self.latent_channels)
             if noises.shape != want:
                 raise ValueError(f"unexpected step_noises shape {noises.shape}; want {want}")
-        ids = b.tokenizer(prompts)
-        w_emb = guidance_scale_embedding(gs - 1.0, b.unet_cfg.time_cond_proj_dim)
-
         dev = self.device
         with torch.inference_mode():
-            ids_t = torch.from_numpy(ids).to(dev, torch.int64)
             lat = torch.from_numpy(lat0).to(dev)
             noises_t = torch.from_numpy(noises).to(dev)
-            w_emb_t = torch.from_numpy(w_emb).to(dev)
-            ctx, _ = clip_text.encode_text(self.text_params, ids_t, b.text_cfg)
+            ctx, pooled = self._encode(prompts)
+            kw = {}
+            if mode == "wcond":
+                kw["timestep_cond"] = torch.from_numpy(
+                    guidance_scale_embedding(gs - 1.0, b.unet_cfg.time_cond_proj_dim)).to(dev)
+            if mode == "cfg":
+                ctx_neg, pooled_neg = self._encode(negs)
+                ctx = torch.cat([ctx_neg, ctx])
+                g = torch.from_numpy(gs).to(dev).reshape(-1, 1, 1, 1)
+            if b.arch == "sdxl":
+                time_ids = torch.from_numpy(self._time_ids(
+                    height, width, bsz, aesthetic_score, cfg_mode=mode)).to(dev)
+                if mode == "cfg":  # [2, B, n]: the uncond rows, then the cond rows
+                    pooled = torch.cat([pooled_neg, pooled])
+                    time_ids = torch.cat([time_ids[0], time_ids[1]])
+                kw.update(added_text_embeds=pooled, added_time_ids=time_ids)
+            rows = 2 * bsz if mode == "cfg" else bsz
             for i in range(schedule.num_steps):
-                t = torch.full((bsz,), int(schedule.timesteps[i]), dtype=torch.int32,
+                t = torch.full((rows,), int(schedule.timesteps[i]), dtype=torch.int32,
                                device=dev)
-                noise_pred = unet.forward(self.unet_params, b.unet_cfg, lat, t, ctx,
-                                          timestep_cond=w_emb_t)
+                x = torch.cat([lat, lat]) if mode == "cfg" else lat
+                noise_pred = unet.forward(self.unet_params, b.unet_cfg, x, t, ctx, **kw)
+                if mode == "cfg":
+                    uncond, cond = noise_pred.chunk(2)
+                    noise_pred = uncond + g * (cond - uncond)
                 lat, denoised = lcm_step(schedule, i, noise_pred, lat, noises_t[i],
                                          prediction_type=b.scheduler_cfg.prediction_type)
             img = vae.decode(self.vae_params, b.vae_cfg, denoised / b.vae_cfg.scaling_factor)

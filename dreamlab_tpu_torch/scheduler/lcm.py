@@ -1,15 +1,17 @@
 """Latent Consistency Model scheduler (port of ``dreamlab_tpu/scheduler/lcm.py``).
 
-``LCMConfig``, ``lcm_timesteps``, ``make_lcm_schedule`` and
-``guidance_scale_embedding`` are host-side float64 numpy copies of the JAX
-package's (its module imports JAX). ``lcm_step`` is the per-step update in
+``LCMConfig``, ``load_scheduler_config``, ``lcm_timesteps``,
+``make_lcm_schedule`` and ``guidance_scale_embedding`` are host-side copies
+of the JAX package's (its module imports JAX), in float64 numpy. ``lcm_step`` is the per-step update in
 fp32 torch. Semantics follow diffusers' ``LCMScheduler``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -56,6 +58,15 @@ class LCMConfig:
 
     def alphas_cumprod(self) -> np.ndarray:
         return np.cumprod(1.0 - self.betas())
+
+
+def load_scheduler_config(model_dir: str) -> LCMConfig:
+    """Read a diffusers-layout ``scheduler/scheduler_config.json``; keys that
+    are not ``LCMConfig`` fields (``_class_name``, ...) are ignored."""
+    with open(os.path.join(model_dir, "scheduler", "scheduler_config.json")) as f:
+        raw = json.load(f)
+    known = {f.name for f in dataclasses.fields(LCMConfig)}
+    return LCMConfig(**{k: v for k, v in raw.items() if k in known})
 
 
 @dataclasses.dataclass(frozen=True)

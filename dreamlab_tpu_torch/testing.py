@@ -1,41 +1,76 @@
-"""Randomly initialised SD1.5 bundles, full width or tiny (port of
-``dreamlab_tpu/testing.py::random_bundle``).
+"""Randomly initialised SD1.5 and SDXL bundles, full width or tiny, and a writer
+that saves a bundle as a diffusers-layout checkpoint directory (port of
+``dreamlab_tpu/testing.py::random_bundle`` and of the exporters of
+``tests/test_loader.py``).
 
 Speed does not depend on weight values, so the chip smoke run drives the real
-architecture with seeded random weights when no checkpoint is at hand. The
+architectures with seeded random weights when no checkpoint is at hand. The
 init scheme is the JAX package's (uniform +-1/sqrt(fan_in), norms 1/0,
 embeddings N(0, 0.02)): activations stay finite in bf16 through 4 steps.
+``write_diffusers_dir`` is the loader's inverse: ``loader.load_pipeline`` of
+what it writes gives the bundle back, leaf for leaf.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from typing import Dict
 
 import torch
 
 from .models import clip_text, configs, unet, vae
 from .pipeline import PipelineBundle
 from .scheduler.lcm import LCMConfig
-from .utils.tokenizer import make_test_tokenizer
+from .utils.safetensors import save_file
+from .utils.tokenizer import CLIPTokenizer, make_test_tokenizer
+
+WORDS = ["cat", "dog", "sunset", "mountain"]
 
 
-def random_bundle(*, tiny: bool = False, seed: int = 0, device="cpu") -> PipelineBundle:
-    """An SD1.5 bundle with random fp32 weights drawn on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``."""
+def random_bundle(arch: str = "sd15", *, tiny: bool = False, seed: int = 0,
+                  device="cpu") -> PipelineBundle:
+    """A bundle with random fp32 weights drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``.
+
+    The tiny SDXL bundle keeps the published text widths (768 + 1280 = the
+    2048-wide context by which the loader tells SDXL) at two layers each,
+    and TINY_UNET_XL's topology with that context and a mid block as deep
+    as its last level, as diffusers' config can express.
+    """
     gen = torch.Generator(device=device).manual_seed(seed)
-    unet_cfg = configs.TINY_UNET if tiny else configs.SD15_UNET
-    vae_cfg = configs.TINY_VAE if tiny else configs.SD15_VAE
-    tok = make_test_tokenizer(["cat", "dog", "sunset", "mountain"])
-    if tiny:
-        # text width tied to the cross-attention dim, as in real checkpoints
-        text_cfg = configs.CLIPTextConfig(
-            vocab_size=len(tok.encoder), hidden_size=unet_cfg.cross_attention_dim,
-            num_layers=2, num_heads=2, intermediate_size=64)
+    tok = make_test_tokenizer(WORDS)
+    vocab = len(tok.encoder)
+    if arch == "sd15":
+        unet_cfg = configs.TINY_UNET if tiny else configs.SD15_UNET
+        vae_cfg = configs.TINY_VAE if tiny else configs.SD15_VAE
+        if tiny:
+            # text width tied to the cross-attention dim, as in real checkpoints
+            text_cfg = configs.CLIPTextConfig(
+                vocab_size=vocab, hidden_size=unet_cfg.cross_attention_dim,
+                num_layers=2, num_heads=2, intermediate_size=64)
+        else:
+            text_cfg = dataclasses.replace(configs.SD15_TEXT, vocab_size=vocab)
+        text_cfg_2 = tok_2 = None
+    elif arch == "sdxl":
+        if tiny:
+            unet_cfg = dataclasses.replace(configs.TINY_UNET_XL, cross_attention_dim=2048,
+                                           mid_block_transformer_layers=2)
+            vae_cfg = configs.TINY_VAE
+            small = dict(vocab_size=vocab, num_layers=2, num_heads=2, intermediate_size=64)
+            text_cfg = dataclasses.replace(configs.SDXL_TEXT_L, **small)
+            text_cfg_2 = dataclasses.replace(configs.SDXL_TEXT_BIGG, projection_dim=32, **small)
+        else:
+            unet_cfg, vae_cfg = configs.SDXL_UNET, configs.SDXL_VAE
+            text_cfg = dataclasses.replace(configs.SDXL_TEXT_L, vocab_size=vocab)
+            text_cfg_2 = dataclasses.replace(configs.SDXL_TEXT_BIGG, vocab_size=vocab)
+        tok_2 = make_test_tokenizer(WORDS, pad_token="!")  # SDXL's tokenizer_2 pads with "!"
     else:
-        text_cfg = dataclasses.replace(configs.SD15_TEXT, vocab_size=len(tok.encoder))
+        raise ValueError(f"unknown arch {arch!r}")
     with torch.no_grad():
         return PipelineBundle(
-            arch="sd15",
+            arch=arch,
             tokenizer=tok,
             text_cfg=text_cfg,
             text_params=clip_text.init_params(text_cfg, gen),
@@ -44,4 +79,241 @@ def random_bundle(*, tiny: bool = False, seed: int = 0, device="cpu") -> Pipelin
             vae_cfg=vae_cfg,
             vae_params=vae.init_decoder_params(vae_cfg, gen),
             scheduler_cfg=LCMConfig(),
+            tokenizer_2=tok_2,
+            text_cfg_2=text_cfg_2,
+            text_params_2=None if text_cfg_2 is None else clip_text.init_params(text_cfg_2, gen),
         )
+
+
+def cast_params(bundle: PipelineBundle, dtype: torch.dtype) -> PipelineBundle:
+    """``bundle`` with every leaf of its parameter trees cast to ``dtype``
+    (the dtype ``write_diffusers_dir`` then stores)."""
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return None if tree is None else tree.to(dtype)
+
+    return dataclasses.replace(bundle, **{
+        name: cast(getattr(bundle, name))
+        for name in ("text_params", "text_params_2", "unet_params", "vae_params")})
+
+
+# ---------------------------------------------------------------------------
+# the loader's inverse: parameter trees -> diffusers state dicts and configs
+# ---------------------------------------------------------------------------
+
+
+class _Out(dict):
+    """A flat state dict under construction, in torch naming."""
+
+    def conv(self, key, p):
+        self[key + ".weight"] = p["w"]
+        if "b" in p:
+            self[key + ".bias"] = p["b"]
+
+    linear = conv  # the port's linears are [out, in], as torch stores them
+
+    def norm(self, key, p):
+        self[key + ".weight"] = p["scale"]
+        self[key + ".bias"] = p["bias"]
+
+    def resnet(self, key, p):
+        self.norm(key + ".norm1", p["norm1"])
+        self.conv(key + ".conv1", p["conv1"])
+        if "time_emb_proj" in p:
+            self.linear(key + ".time_emb_proj", p["time_emb_proj"])
+        self.norm(key + ".norm2", p["norm2"])
+        self.conv(key + ".conv2", p["conv2"])
+        if "shortcut" in p:
+            self.conv(key + ".conv_shortcut", p["shortcut"])
+
+    def attention(self, key, p, out="to_out.0"):
+        for name, sub in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("out", out)):
+            self.linear(f"{key}.{sub}", p[name])
+
+    def transformer(self, key, p):
+        self.norm(key + ".norm", p["norm"])
+        self.linear(key + ".proj_in", p["proj_in"])
+        for k, blk in enumerate(p["blocks"]):
+            b = f"{key}.transformer_blocks.{k}"
+            self.norm(b + ".norm1", blk["ln1"])
+            self.attention(b + ".attn1", blk["attn1"])
+            self.norm(b + ".norm2", blk["ln2"])
+            self.attention(b + ".attn2", blk["attn2"])
+            self.norm(b + ".norm3", blk["ln3"])
+            self.linear(b + ".ff.net.0.proj", blk["ff_geglu"])
+            self.linear(b + ".ff.net.2", blk["ff_out"])
+        self.linear(key + ".proj_out", p["proj_out"])
+
+
+def export_unet(params) -> Dict[str, torch.Tensor]:
+    out = _Out()
+    out.conv("conv_in", params["conv_in"])
+    for name, p in params["time_embedding"].items():
+        out.linear(f"time_embedding.{name}", p)
+    for name, p in params.get("add_embedding", {}).items():
+        out.linear(f"add_embedding.{name}", p)
+    for i, block in enumerate(params["down"]):
+        for j, res in enumerate(block["resnets"]):
+            out.resnet(f"down_blocks.{i}.resnets.{j}", res)
+            if block.get("attentions"):
+                out.transformer(f"down_blocks.{i}.attentions.{j}", block["attentions"][j])
+        if "downsample" in block:
+            out.conv(f"down_blocks.{i}.downsamplers.0.conv", block["downsample"])
+    out.resnet("mid_block.resnets.0", params["mid"]["resnet1"])
+    out.resnet("mid_block.resnets.1", params["mid"]["resnet2"])
+    if "attention" in params["mid"]:
+        out.transformer("mid_block.attentions.0", params["mid"]["attention"])
+    for k, block in enumerate(params["up"]):
+        for j, res in enumerate(block["resnets"]):
+            out.resnet(f"up_blocks.{k}.resnets.{j}", res)
+            if block.get("attentions"):
+                out.transformer(f"up_blocks.{k}.attentions.{j}", block["attentions"][j])
+        if "upsample" in block:
+            out.conv(f"up_blocks.{k}.upsamplers.0.conv", block["upsample"])
+    out.norm("conv_norm_out", params["norm_out"])
+    out.conv("conv_out", params["conv_out"])
+    return out
+
+
+def export_vae_decoder(params) -> Dict[str, torch.Tensor]:
+    out = _Out()
+    if "post_quant_conv" in params:
+        out.conv("post_quant_conv", params["post_quant_conv"])
+    out.conv("decoder.conv_in", params["conv_in"])
+    out.resnet("decoder.mid_block.resnets.0", params["mid"]["resnet1"])
+    out.resnet("decoder.mid_block.resnets.1", params["mid"]["resnet2"])
+    a = params["mid"]["attention"]
+    out.norm("decoder.mid_block.attentions.0.group_norm", a["norm"])
+    out.attention("decoder.mid_block.attentions.0", a)
+    for k, block in enumerate(params["up"]):
+        for j, res in enumerate(block["resnets"]):
+            out.resnet(f"decoder.up_blocks.{k}.resnets.{j}", res)
+        if "upsample" in block:
+            out.conv(f"decoder.up_blocks.{k}.upsamplers.0.conv", block["upsample"])
+    out.norm("decoder.conv_norm_out", params["norm_out"])
+    out.conv("decoder.conv_out", params["conv_out"])
+    return out
+
+
+def export_clip_text(params) -> Dict[str, torch.Tensor]:
+    out = _Out()
+    pre = "text_model."
+    out[pre + "embeddings.token_embedding.weight"] = params["token_embedding"]["w"]
+    out[pre + "embeddings.position_embedding.weight"] = params["position_embedding"]["w"]
+    for i, layer in enumerate(params["layers"]):
+        b = f"{pre}encoder.layers.{i}"
+        out.norm(b + ".layer_norm1", layer["ln1"])
+        for name, proj in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                           ("out", "out_proj")):
+            out.linear(f"{b}.self_attn.{proj}", layer["attn"][name])
+        out.norm(b + ".layer_norm2", layer["ln2"])
+        out.linear(b + ".mlp.fc1", layer["fc1"])
+        out.linear(b + ".mlp.fc2", layer["fc2"])
+    out.norm(pre + "final_layer_norm", params["final_ln"])
+    if "text_projection" in params:
+        out.linear("text_projection", params["text_projection"])
+    return out
+
+
+def unet_config_json(cfg: configs.UNetConfig) -> Dict:
+    """diffusers' ``unet/config.json`` for ``cfg``: the head counts under
+    ``attention_head_dim`` as SD1.5 and SDXL checkpoints store them, and the
+    mid block as deep as the last level's ``transformer_layers_per_block``
+    entry (the only depth diffusers' config can give it)."""
+    tl = list(cfg.transformer_layers_per_block)
+    mid = cfg.mid_block_transformer_layers
+    if mid and tl[-1] not in (0, mid):
+        raise ValueError(f"mid block depth {mid} differs from the last level's {tl[-1]}: "
+                         "diffusers' config cannot express it")
+    down = ["CrossAttnDownBlock2D" if n else "DownBlock2D" for n in tl]
+    raw = {
+        "_class_name": "UNet2DConditionModel",
+        "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+        "block_out_channels": list(cfg.block_out_channels),
+        "down_block_types": down,
+        "up_block_types": [t.replace("Down", "Up") for t in reversed(down)],
+        "mid_block_type": "UNetMidBlock2DCrossAttn" if mid else None,
+        # a level without attention reads no depth: 1 there, the mid's at the last
+        "transformer_layers_per_block": [n or 1 for n in tl[:-1]] + [tl[-1] or mid or 1],
+        "attention_head_dim": list(cfg.num_attention_heads),
+        "cross_attention_dim": cfg.cross_attention_dim,
+        "layers_per_block": cfg.layers_per_block,
+        "norm_num_groups": cfg.norm_groups,
+        "flip_sin_to_cos": cfg.flip_sin_to_cos, "freq_shift": cfg.freq_shift,
+        "time_cond_proj_dim": cfg.time_cond_proj_dim,
+    }
+    if cfg.addition_embed_type is not None:
+        raw.update(addition_embed_type=cfg.addition_embed_type,
+                   addition_time_embed_dim=cfg.addition_time_embed_dim,
+                   projection_class_embeddings_input_dim=(
+                       cfg.projection_class_embeddings_input_dim))
+    return raw
+
+
+def text_config_json(cfg: configs.CLIPTextConfig) -> Dict:
+    arch = "CLIPTextModelWithProjection" if cfg.projection_dim else "CLIPTextModel"
+    raw = {"architectures": [arch], "vocab_size": cfg.vocab_size,
+           "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+           "num_attention_heads": cfg.num_heads,
+           "max_position_embeddings": cfg.max_position_embeddings,
+           "intermediate_size": cfg.intermediate_size, "hidden_act": cfg.hidden_act,
+           "layer_norm_eps": cfg.layer_norm_eps}
+    if cfg.projection_dim:
+        raw["projection_dim"] = cfg.projection_dim
+    return raw
+
+
+def _write_tokenizer(tok: CLIPTokenizer, path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(tok.encoder, f, ensure_ascii=False)
+    merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(" ".join(m) + "\n" for m in merges))
+    cfg = {"model_max_length": tok.max_length}
+    if tok.pad_id != tok.eos_id:
+        cfg["pad_token"] = next(t for t, i in tok.encoder.items() if i == tok.pad_id)
+    with open(os.path.join(path, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(cfg, f, ensure_ascii=False)
+
+
+def write_diffusers_dir(bundle: PipelineBundle, model_dir: str) -> str:
+    """Save ``bundle`` as a diffusers-layout checkpoint directory, each tensor
+    in its own dtype; returns ``model_dir``."""
+
+    def component(name, cfg_json, tensors, weights="diffusion_pytorch_model.safetensors"):
+        os.makedirs(os.path.join(model_dir, name), exist_ok=True)
+        with open(os.path.join(model_dir, name, "config.json"), "w") as f:
+            json.dump(cfg_json, f, indent=1)
+        save_file(tensors, os.path.join(model_dir, name, weights), {"format": "pt"})
+
+    xl = bundle.arch == "sdxl"
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusionXLPipeline" if xl
+                   else "StableDiffusionPipeline"}, f)
+    component("unet", unet_config_json(bundle.unet_cfg), export_unet(bundle.unet_params))
+    vcfg = bundle.vae_cfg
+    component("vae", {"_class_name": "AutoencoderKL", "latent_channels": vcfg.latent_channels,
+                      "out_channels": vcfg.out_channels,
+                      "block_out_channels": list(vcfg.block_out_channels),
+                      "layers_per_block": vcfg.layers_per_block,
+                      "norm_num_groups": vcfg.norm_groups,
+                      "scaling_factor": vcfg.scaling_factor},
+              export_vae_decoder(bundle.vae_params))
+    towers = [("", bundle.tokenizer, bundle.text_cfg, bundle.text_params)]
+    if bundle.text_params_2 is not None:
+        towers.append(("_2", bundle.tokenizer_2, bundle.text_cfg_2, bundle.text_params_2))
+    for suffix, tok, cfg, params in towers:
+        component("text_encoder" + suffix, text_config_json(cfg), export_clip_text(params),
+                  weights="model.safetensors")
+        _write_tokenizer(tok, os.path.join(model_dir, "tokenizer" + suffix))
+    os.makedirs(os.path.join(model_dir, "scheduler"), exist_ok=True)
+    with open(os.path.join(model_dir, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump({"_class_name": "LCMScheduler",
+                   **dataclasses.asdict(bundle.scheduler_cfg)}, f, indent=1)
+    return model_dir

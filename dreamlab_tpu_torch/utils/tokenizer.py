@@ -8,8 +8,9 @@ from ``unicodedata.category``, as explicit code-point ranges.
 
 CLIP specifics: byte-level BPE over GPT-2's printable byte alphabet,
 lowercasing and whitespace collapse, word-final ``</w>``, specials
-``<|startoftext|>`` / ``<|endoftext|>``, pad-to-77 with the EOS id, and
-truncation at 77 tokens with a warning.
+``<|startoftext|>`` / ``<|endoftext|>``, pad-to-77 with the checkpoint's
+declared pad token (EOS where it declares none), and truncation at 77
+tokens with a warning.
 """
 
 from __future__ import annotations
@@ -100,17 +101,36 @@ class CLIPTokenizer:
 
     @classmethod
     def from_pretrained(cls, tokenizer_dir: str, **kwargs) -> "CLIPTokenizer":
-        """Load a diffusers-layout ``tokenizer/`` directory (vocab.json, merges.txt)."""
+        """Load a diffusers-layout ``tokenizer/`` directory (vocab.json, merges.txt).
+
+        The pad token is the checkpoint's declared one (``tokenizer_config.json``
+        ``pad_token``, else ``special_tokens_map.json``; a plain string or an
+        ``AddedToken`` dict): SDXL's ``tokenizer_2`` pads with "!" (id 0).
+        Without a declared pad token in the vocabulary, CLIP pads with EOS.
+        """
         with open(os.path.join(tokenizer_dir, "vocab.json"), encoding="utf-8") as f:
             vocab = json.load(f)
         with open(os.path.join(tokenizer_dir, "merges.txt"), encoding="utf-8") as f:
             lines = f.read().split("\n")
         merges = [line for line in lines if line and not line.startswith("#")]
+
+        def special(v):
+            return v.get("content") if isinstance(v, dict) else v
+
+        pad = None
         cfg_path = os.path.join(tokenizer_dir, "tokenizer_config.json")
         if os.path.exists(cfg_path):
             with open(cfg_path, encoding="utf-8") as f:
                 cfg = json.load(f)
             kwargs.setdefault("max_length", cfg.get("model_max_length", 77) or 77)
+            pad = special(cfg.get("pad_token"))
+        if pad is None:
+            map_path = os.path.join(tokenizer_dir, "special_tokens_map.json")
+            if os.path.exists(map_path):
+                with open(map_path, encoding="utf-8") as f:
+                    pad = special(json.load(f).get("pad_token"))
+        if pad is not None and pad in vocab:
+            kwargs.setdefault("pad_token", pad)
         return cls(vocab, merges, **kwargs)
 
     def _bpe(self, token: str) -> List[str]:
@@ -182,9 +202,11 @@ class CLIPTokenizer:
         return batch
 
 
-def make_test_tokenizer(words: Optional[List[str]] = None) -> CLIPTokenizer:
+def make_test_tokenizer(words: Optional[List[str]] = None,
+                        pad_token: Optional[str] = None) -> CLIPTokenizer:
     """Tiny synthetic tokenizer for the hardware-free tests: full byte
-    alphabet + ``</w>`` variants + merges for a few known words."""
+    alphabet + ``</w>`` variants + merges for a few known words; pads with
+    ``pad_token`` (SDXL's second tokenizer: "!", id 0) or EOS."""
     alphabet = sorted(set(_bytes_to_unicode().values()))
     vocab: Dict[str, int] = {}
     for ch in alphabet:
@@ -203,4 +225,4 @@ def make_test_tokenizer(words: Optional[List[str]] = None) -> CLIPTokenizer:
                 vocab[prefix] = len(vocab)
     vocab["<|startoftext|>"] = len(vocab)
     vocab["<|endoftext|>"] = len(vocab)
-    return CLIPTokenizer(vocab, merges)
+    return CLIPTokenizer(vocab, merges, pad_token=pad_token)

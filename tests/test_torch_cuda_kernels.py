@@ -81,6 +81,8 @@ def test_build_reports_registers(cuda):
     (1, 4096, 4096, 2, 40),  # UNet level 1: d = 40 padded to the mma depth of 48
     (1, 256, 300, 4, 20),    # 40-byte head rows: staged element by element
     (2, 130, 77, 3, 7),      # odd head dim, ragged edges
+    (1, 4096, 4096, 10, 64),  # SDXL at 1024²: level 1
+    (2, 1024, 1024, 20, 64),  # SDXL at 1024²: level 2, the cfg mode's doubled batch
 ])
 def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
     q = _randn((b, n, h, d), dtype, cuda, 0)
@@ -238,6 +240,11 @@ def test_group_norm_matches_plain(cuda, dtype, shape, groups, silu):
     (1, 64, 64, 512), (1, 256, 256, 512), (1, 512, 512, 256), (1, 512, 512, 128),
     # batch 8 at a UNet width
     (8, 32, 32, 640),
+    # SDXL at 1024x1024: the UNet's widths on 128^2 (4x SD1.5's rows) and the
+    # narrower levels' widest, and the VAE's 1024^2 rows (268 M values at 256
+    # channels: 0.5 GiB a batch row)
+    (1, 128, 128, 320), (1, 128, 128, 640), (1, 128, 128, 960), (1, 64, 64, 1920),
+    (1, 32, 32, 2560), (1, 1024, 1024, 256), (2, 1024, 1024, 256), (1, 1024, 1024, 128),
 ])
 def test_group_norm_cluster_path_at_census_widths(cuda, shape):
     """bf16 at the widths one request gives the kernel, against the plain

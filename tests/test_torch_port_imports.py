@@ -1,4 +1,5 @@
-"""Import hygiene: the port imports nothing of JAX and nothing of ``dreamlab_tpu``."""
+"""Import hygiene: the port imports nothing of JAX and nothing of ``dreamlab_tpu``,
+and reads safetensors files without the ``safetensors`` package."""
 
 import os
 import pkgutil
@@ -16,6 +17,8 @@ def test_importing_every_module_loads_no_jax():
         dreamlab_tpu_torch.__path__, "dreamlab_tpu_torch."))
     assert "dreamlab_tpu_torch.engine.cuda_worker" in mods
     assert "dreamlab_tpu_torch.scripts.ab_attention_layout" in mods
+    for new in ("loader", "engine.worker_factory", "utils.safetensors"):
+        assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -25,7 +28,8 @@ def test_importing_every_module_loads_no_jax():
         "assert len(counts) >= 5 and not any(counts.values()), counts\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
-        " or m == 'dreamlab_tpu' or m.startswith('dreamlab_tpu.'))\n"
+        " or m == 'dreamlab_tpu' or m.startswith('dreamlab_tpu.')"
+        " or m == 'safetensors' or m.startswith('safetensors.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -35,7 +39,7 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_name_no_jax_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|dreamlab_tpu)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors)(\.|\s|$)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "dreamlab_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
