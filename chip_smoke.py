@@ -17,30 +17,43 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    hold to the JAX package);
 4. holds each kernel against its plain version again, and times it (device
    time, ``scripts/timing.py::device_ms``), at the shapes one 512x512
-   request gives it (found by a census run), beside its plain version, a
-   library call and its bound; at each flash shape also K1's tile sweep and
-   the head-group kernel at the JAX package's pack (main-path candidates);
+   request gives it (found by a census run on the pipeline's eager route),
+   beside its plain version, a library call and its bound; at each flash
+   shape also K1's tile sweep and the head-group kernel at the JAX package's
+   pack (main-path candidates);
 5. drives the main path at SD1.5's full width with seeded random bf16
-   weights: 20 timed CudaPipelineWorker.run_job requests (512x512, 4 LCM
-   steps), one of them a repeat that must be byte-identical, and run_jobs
-   batches of 8 whose row must match that spec's solo run; launch counts must
-   show every kernel ran, and that each GroupNorm call launched one kernel;
+   weights: captures the batch-1 and batch-8 buckets (``warmup``: one eager
+   run, then the capture, each launching every kernel once per call: the
+   launch counts must be 4x the census; seconds and reserved bytes per
+   bucket), then 20 timed CudaPipelineWorker.run_job requests (512x512, 4 LCM
+   steps) that replay the batch-1 graph, one of them a repeat that must be
+   byte-identical, and run_jobs batches of 8 whose row must equal that spec's
+   solo run byte for byte; replays add no count, the profiler counts the
+   kernels a replay ran (40 flash, 209 GroupNorm, as the census);
+   then the before: the same requests on the private eager route (timed,
+   profiled, PNG against the graph's), and device RNG (same seed, same bytes;
+   another seed, other bytes);
 6. loader phase: writes SD1.5 at full width (``random_bundle(seed=0)``, fp16)
-   as a diffusers directory in a temporary directory, builds a worker from it
-   with ``create_cuda_worker`` (load seconds printed), and checks that one
-   ``run_job``'s PNG is byte-identical to that of a pipeline built in memory
-   from the same fp16 values, with 40 flash and 209 GroupNorm launches;
+   as a diffusers directory and as an LDM single file in a temporary
+   directory, builds a worker from each with ``create_cuda_worker`` (load
+   seconds printed; the single file with ``warmup_size=(512, 512)``), and
+   checks that one ``run_job``'s PNG is byte-identical to that of a pipeline
+   built in memory from the same fp16 values, for both;
 7. SDXL phase: SDXL at full width (two text towers, ``text_time``
    micro-conditioning), seeded random bf16 weights drawn on the card, 1024x1024,
-   4 steps. A census of one request (280 flash, 169 GroupNorm launches), each
-   kernel held against its plain version and timed at every census shape, the
-   largest VAE GroupNorm also at batch 2 and the VAE's plain mid-block
+   4 steps. A census of one request on the eager route (280 flash, 169
+   GroupNorm launches), each kernel held against its plain version and timed
+   at every census shape, the largest VAE GroupNorm also at batch 2 and at
+   batch 8 (2^31 values: each row against its plain version and byte-equal to
+   the kernel's batch-1 output of that row), and the VAE's plain mid-block
    attention (one 512-wide head over 16384 tokens) timed with its peak memory;
    then 5 timed requests at guidance 1.0 (``none`` mode; one a repeat that
    must be byte-identical), one at guidance 2.0 with a negative prompt (the
    batch-doubled ``cfg`` mode), ``run_jobs`` of 2 in each mode whose rows must
-   equal their solo runs byte for byte, one profiled request, the peak memory;
-   one ``{"sdxl": {...}}`` line;
+   equal their solo runs byte for byte, each bucket captured on its first
+   request; one profiled replay; the eager route on the same requests (timed,
+   profiled, PNGs against the graph's); the peak memory; one
+   ``{"sdxl": {...}}`` line;
 8. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
    ``kernel_call`` at lanes 40 and 128, K6 ``flash_attention_packed3``) in
    fp32 against their plain versions at the probes' full shapes, then runs
@@ -58,7 +71,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
+import math
 import os
 import platform
 import re
@@ -86,7 +101,9 @@ from dreamlab_tpu_torch.pipeline import LCMPipeline
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
 from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
                                                max_err)
-from dreamlab_tpu_torch.testing import cast_params, random_bundle, write_diffusers_dir
+from dreamlab_tpu_torch.testing import (cast_params, random_bundle, write_diffusers_dir,
+                                        write_single_file)
+from dreamlab_tpu_torch.utils.png import encode_png
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # operations over the peak for the inputs' type and bytes over HBM bandwidth
@@ -106,8 +123,13 @@ STEPS = 4
 SIZE = 512
 LATENCY_SAMPLES = 20  # batch-1 requests timed on the main path (p50 over them)
 BATCH8_SAMPLES = 3  # run_jobs calls of 8 timed (img/s from their median)
+EAGER_SAMPLES = 10  # the same requests on the eager route (the before)
 XL_SIZE = 1024
 XL_LATENCY_SAMPLES = 5  # SDXL batch-1 requests timed (p50, min, max over them)
+XL_EAGER_SAMPLES = 3
+# a bucket's capture follows one eager run: each launches every kernel once
+# per call, so capturing a bucket counts twice its census
+CAPTURE_RUNS = 2
 # one SDXL request: 10 self-attention sites at 4096 tokens and 60 at 1024 per
 # UNet call; 35 GroupNorm+SiLU calls per UNet call (17 resnets x 2 + norm_out)
 # and 29 in the VAE decode; 4 steps; the cfg mode's doubled batch launches the same
@@ -304,7 +326,17 @@ def check_small_pipeline() -> None:
     bundle = random_bundle(tiny=True, seed=3)
     call = dict(height=64, width=64, num_inference_steps=2, seed=7, batch=2)
     f0, g0 = fa.LAUNCHES, gn.APPLY_LAUNCHES
-    gpu = LCMPipeline(bundle, dtype=torch.float32).generate("a cat at sunset", **call)
+    pipe = LCMPipeline(bundle, dtype=torch.float32)
+    # what a deployed worker gets: the pipeline sets them, this script does not
+    flags = {"cudnn.deterministic": torch.backends.cudnn.deterministic,
+             "cudnn.benchmark": torch.backends.cudnn.benchmark,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    log({"backend_flags": flags})
+    expect(flags == {"cudnn.deterministic": True, "cudnn.benchmark": False,
+                     "cudnn.allow_tf32": False, "matmul.allow_tf32": False},
+           f"LCMPipeline left the backend flags {flags}")
+    gpu = pipe.generate("a cat at sunset", **call)
     expect(fa.LAUNCHES > f0 and gn.APPLY_LAUNCHES > g0, "tiny pipeline launched no kernel")
     cpu = LCMPipeline(bundle, dtype=torch.float32, device="cpu").generate(
         "a cat at sunset", **call)
@@ -323,7 +355,8 @@ def check_small_pipeline() -> None:
 
 
 def census(pipe, size: int = SIZE) -> collections.Counter:
-    """Shapes each kernel wrapper sees in one batch-1 request at ``size``²."""
+    """Shapes each kernel wrapper sees in one batch-1 request at ``size``²
+    (the eager route: a capture would run the wrappers twice)."""
     seen = collections.Counter()
     flash, gnorm = attention.flash_attention, layers.fused_group_norm_silu
 
@@ -337,7 +370,8 @@ def census(pipe, size: int = SIZE) -> collections.Counter:
 
     attention.flash_attention, layers.fused_group_norm_silu = rec_flash, rec_gn
     try:
-        pipe.generate("census", height=size, width=size, num_inference_steps=STEPS, seed=0)
+        pipe._generate_eager("census", height=size, width=size, num_inference_steps=STEPS,
+                             seed=0)
     finally:
         attention.flash_attention, layers.fused_group_norm_silu = flash, gnorm
     return seen
@@ -481,10 +515,23 @@ def counts() -> dict:
             "gn_apply": gn.APPLY_LAUNCHES}
 
 
+def bucket_stats(pipe) -> list:
+    """Each captured bucket of ``pipe``: its key, capture seconds and the bytes
+    it added to the pipeline's graph pool."""
+    return [{"key": list(key), "capture_s": p.capture_s, "reserved_bytes": p.reserved_bytes}
+            for key, p in pipe._compiled.items()]
+
+
 def main_path(worker, per_request) -> dict:
     spec = lambda seed: GenSpec(f"a mountain at sunset, seed {seed}", size=f"{SIZE}x{SIZE}",
                                 num_inference_steps=STEPS, seed=seed)
+    pipe = worker.pipeline
     reset_counts()
+    warm = {f"batch{b}": pipe.warmup(SIZE, SIZE, steps=STEPS, batch=b) for b in (1, 8)}
+    captured = counts()
+    expect(captured == {k: 2 * CAPTURE_RUNS * v for k, v in per_request.items()},
+           f"capturing the batch-1 and batch-8 buckets launched {captured}, expected "
+           f"{2 * CAPTURE_RUNS} x {per_request} (an eager run and a capture each)")
     latency, pngs = [], {}
     for seed in (1, 2, 3):
         t0 = time.perf_counter()
@@ -497,8 +544,8 @@ def main_path(worker, per_request) -> dict:
         check_png(png)
         pngs[seed] = png
         if seed == 1:
-            expect(counts() == per_request, f"one request launched {counts()}, "
-                                            f"expected {per_request}")
+            expect(counts() == captured, f"a replayed request went through the wrappers: "
+                                         f"{counts()} after {captured}")
     t0 = time.perf_counter()
     expect(worker.run_job(spec(1))[0] == pngs[1], "same seed gives identical PNG bytes")
     latency.append(time.perf_counter() - t0)
@@ -519,19 +566,98 @@ def main_path(worker, per_request) -> dict:
     row = png_pixels(out[3][0]).astype(np.int16)
     delta = int(np.abs(row - png_pixels(solo).astype(np.int16)).max())
     log({"batch_row_vs_solo": {"identical_bytes": out[3][0] == solo, "max_pixel_delta": delta}})
-    expect(delta <= 1, f"batch-8 row differs from its solo run by {delta}")
+    expect(out[3][0] == solo, f"batch-8 row differs from its solo run (max delta {delta})")
 
-    # batch-1 and batch-8 runs each launch once per site; +1 for the solo check
-    n_requests = LATENCY_SAMPLES + BATCH8_SAMPLES + 1
+    # the replays went through no wrapper: the counts are the captures'
     got = counts()
-    expect(got == {k: n_requests * v for k, v in per_request.items()},
-           f"main path launched {got}, expected {n_requests} x {per_request}")
+    expect(got == captured, f"main path launched {got}, expected the captures' {captured}")
+    expect(len(pipe._compiled) == 2, f"the main path made {len(pipe._compiled)} buckets, "
+                                     "expected batch 1 and batch 8")
     lat_ms = [1e3 * t for t in latency]
     return {"launches": got, "p50_ms_batch1": statistics.median(lat_ms),
             "batch1_samples": len(lat_ms), "min_ms_batch1": min(lat_ms),
             "max_ms_batch1": max(lat_ms), "latency_ms_batch1": lat_ms,
             "img_per_s_batch8": 8 / statistics.median(batch_s),
-            "batch8_s": batch_s, "batch_row_max_pixel_delta": delta}
+            "batch8_s": batch_s, "batch_row_max_pixel_delta": delta,
+            "warmup": {k: {"seconds": w["seconds"], "capture_s": w["capture_s"],
+                           "reserved_bytes": w["reserved_bytes"]} for k, w in warm.items()},
+            "graph_pool_bytes": sum(w["reserved_bytes"] for w in warm.values())}
+
+
+def eager_png(pipe, spec) -> bytes:
+    """``run_job_with_latents``'s PNG on the pipeline's private eager route:
+    the before of the graph path."""
+    w, h = spec.dims()
+    res = pipe._generate_eager(spec.prompt, height=h, width=w,
+                               num_inference_steps=spec.num_inference_steps,
+                               guidance_scale=spec.guidance_scale,
+                               negative_prompt=spec.negative_prompt, seed=spec.seed,
+                               aesthetic_score=spec.aesthetic_score)
+    return encode_png(res.images[0])
+
+
+def graph_vs_eager(worker, specs, n_eager: int, kernels: dict) -> dict:
+    """The before (eager route) beside the after (replayed graph): the PNG of
+    each spec both ways (at most one pixel level apart), the eager route's
+    times over ``n_eager`` requests, and one profiled request each way
+    (the replay must run ``kernels``, the census)."""
+    pipe = worker.pipeline
+    pngs = {}
+    for name, spec in specs.items():
+        graph, eager = worker.run_job_with_latents(spec)[0], eager_png(pipe, spec)
+        delta = int(np.abs(png_pixels(graph).astype(np.int16)
+                           - png_pixels(eager).astype(np.int16)).max())
+        pngs[name] = {"identical_bytes": graph == eager, "max_pixel_delta": delta}
+        expect(delta <= 1, f"{name}: the graph's PNG is {delta} levels off the eager route's")
+    first = next(iter(specs.values()))
+    eager_ms = []
+    for i in range(n_eager):
+        t0 = time.perf_counter()
+        eager_png(pipe, dataclasses.replace(first, seed=300 + i))
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+    prof_graph = profile(lambda: worker.run_job(first))
+    prof_eager = profile(lambda: eager_png(pipe, first))
+    for name, prof in (("replay", prof_graph), ("eager", prof_eager)):
+        ran = {k: prof["port_kernels"].get(k, 0) for k in kernels}
+        expect(ran == kernels, f"a profiled {name} request ran {prof['port_kernels']}, "
+                               f"expected {kernels}")
+    return {"graph_vs_eager": pngs, "eager_p50_ms": statistics.median(eager_ms),
+            "eager_min_ms": min(eager_ms), "eager_max_ms": max(eager_ms),
+            "eager_ms": eager_ms, "host_ms": host_breakdown(pipe, first),
+            "profile_graph": prof_graph, "profile_eager": prof_eager}
+
+
+def host_breakdown(pipe, spec, samples: int = 5) -> dict:
+    """Medians (ms) of a replayed request's parts: host staging alone
+    (``_stage``), ``generate`` (staging, input copies, replay, the
+    device-to-host copy), and the PNG encoding of its image."""
+    w, h = spec.dims()
+    call = dict(height=h, width=w, num_inference_steps=spec.num_inference_steps,
+                guidance_scale=spec.guidance_scale, negative_prompt=spec.negative_prompt,
+                seed=spec.seed)
+    parts = collections.defaultdict(list)
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        pipe._stage(spec.prompt, **call)
+        t1 = time.perf_counter()
+        res = pipe.generate(spec.prompt, **call)
+        t2 = time.perf_counter()
+        encode_png(res.images[0])
+        t3 = time.perf_counter()
+        for name, dt in (("stage", t1 - t0), ("generate", t2 - t1), ("png", t3 - t2)):
+            parts[name].append(1e3 * dt)
+    return {name: statistics.median(v) for name, v in parts.items()}
+
+
+def check_device_rng(pipe) -> dict:
+    """rng="device" on the graph path: one seed twice gives the same bytes,
+    another seed other bytes."""
+    call = dict(height=SIZE, width=SIZE, num_inference_steps=STEPS, rng="device")
+    a, b, c = (pipe.generate("a mountain at sunset", seed=s, **call).images for s in (5, 5, 6))
+    out = {"same_seed_identical": bool(np.array_equal(a, b)),
+           "other_seed_differs": not np.array_equal(a, c)}
+    expect(all(out.values()), f"device RNG: {out}")
+    return out
 
 
 def kernel_times(prof) -> list:
@@ -584,40 +710,54 @@ def profile(run) -> dict:
 
 
 def loader_phase(per_request) -> dict:
-    """SD1.5 at full width written as an fp16 diffusers directory, served by
-    ``create_cuda_worker``: its PNG must equal, byte for byte, that of a
-    pipeline built in memory from the same fp16 values."""
+    """SD1.5 at full width written as an fp16 diffusers directory and as an
+    fp16 LDM single file, each served by ``create_cuda_worker`` (the single
+    file with its bucket captured at load): each PNG must equal, byte for
+    byte, that of a pipeline built in memory from the same fp16 values."""
     bundle = cast_params(random_bundle(seed=0, device="cuda"), torch.float16)
     spec = GenSpec("a mountain at sunset", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
                    seed=21)
+    out = {}
     with tempfile.TemporaryDirectory(prefix="dreamlab_ckpt_") as root:
-        model_dir = os.path.join(root, "sd15")
+        paths = {"directory": os.path.join(root, "sd15"),
+                 "single_file": os.path.join(root, "sd15.safetensors")}
         t0 = time.perf_counter()
-        write_diffusers_dir(bundle, model_dir)
-        write_s = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(d, f))
-                     for d, _, files in os.walk(model_dir) for f in files)
+        write_diffusers_dir(bundle, paths["directory"])
+        write_s = {"directory": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        write_single_file(bundle, paths["single_file"])
+        write_s["single_file"] = time.perf_counter() - t0
+        nbytes = {"directory": sum(os.path.getsize(os.path.join(d, f)) for d, _, files
+                                   in os.walk(paths["directory"]) for f in files),
+                  "single_file": os.path.getsize(paths["single_file"])}
         memory = CudaPipelineWorker(LCMPipeline(bundle))
         del bundle
         png_memory = memory.run_job(spec)[0]
         del memory
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        worker = create_cuda_worker(0, model_dir)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        reset_counts()
-        png_loaded = worker.run_job(spec)[0]
-        launched = counts()
-    del worker
-    torch.cuda.empty_cache()
-    expect(png_loaded == png_memory, "the loaded checkpoint's PNG differs from the "
-                                     "in-memory pipeline's on the same fp16 values")
-    expect(launched == per_request, f"the loaded worker launched {launched}, "
-                                    f"expected {per_request}")
-    check_png(png_loaded)
-    return {"checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
-            "png_identical": png_loaded == png_memory, "launches": launched}
+        for name, path in paths.items():
+            warmup = (SIZE, SIZE) if name == "single_file" else None
+            reset_counts()
+            t0 = time.perf_counter()
+            worker = create_cuda_worker(0, path, warmup_size=warmup)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            png = worker.run_job(spec)[0]
+            launched = counts()
+            del worker
+            torch.cuda.empty_cache()
+            check_png(png)
+            expect(png == png_memory, f"the {name} checkpoint's PNG differs from the "
+                                      "in-memory pipeline's on the same fp16 values")
+            # the bucket's capture (at load or on the first request) is the
+            # only place the wrappers run
+            expect(launched == {k: CAPTURE_RUNS * v for k, v in per_request.items()},
+                   f"the {name} worker launched {launched}, expected "
+                   f"{CAPTURE_RUNS} x {per_request}")
+            out[name] = {"checkpoint_bytes": nbytes[name], "write_s": write_s[name],
+                         "load_s": load_s, "warmup_size": warmup,
+                         "png_identical": png == png_memory, "launches": launched}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -625,9 +765,38 @@ def loader_phase(per_request) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def check_gn_2e31(gamma, beta, errs) -> dict:
+    """fused_group_norm_silu on bf16 [8, 1024, 1024, 256] (2^31 values, the
+    VAE decode of a run_jobs of 8 SDXL requests): each batch row against the
+    plain version of that row alone (beyond one bf16 rounding, TOL_BF16) and
+    byte-equal to the kernel's batch-1 output of that row."""
+    shape = (8, XL_SIZE, XL_SIZE, 256)
+    x = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+    for i in range(shape[0]):
+        x[i] = randn(shape[1:], torch.bfloat16, 50 + i)
+    y = gn.fused_group_norm_silu(x, gamma, beta, groups=32)
+    rows = []
+    for i in range(shape[0]):
+        xi = x[i:i + 1]
+        want = gn.group_norm_plain(xi.float(), gamma.float(), beta.float(), groups=32, silu=True)
+        c = bf16_check(y[i:i + 1], want, TOL_BF16)
+        del want
+        solo = torch.equal(y[i:i + 1], gn.fused_group_norm_silu(xi, gamma, beta, groups=32))
+        expect(c["beyond_rounding"] <= c["limit"], f"gn [8,1024,1024,256] row {i}: {c}")
+        expect(solo, f"gn [8,1024,1024,256] row {i} differs from its batch-1 output")
+        errs["gn"] = max(errs["gn"], c["max_abs_err"])
+        errs["gn_beyond"] = max(errs["gn_beyond"], c["beyond_rounding"])
+        rows.append({"max_abs_err": c["max_abs_err"], "beyond_rounding": c["beyond_rounding"],
+                     "equals_batch1": solo})
+        torch.cuda.empty_cache()
+    del x, y
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "values": math.prod(shape), "limit": TOL_BF16, "rows": rows}
+
+
 def check_sdxl_extremes(errs) -> dict:
-    """The largest VAE GroupNorm at batch 2 (the census has batch 1), and the
-    VAE's plain mid-block attention (one 512-wide head over 16384 tokens):
+    """The largest VAE GroupNorm at batch 2 and at batch 8 (the census has
+    batch 1), and the VAE's plain mid-block attention (one 512-wide head over 16384 tokens):
     its device time and the memory it adds at its peak."""
     x = randn((2, XL_SIZE, XL_SIZE, 256), torch.bfloat16, 40)
     gamma = (1 + 0.1 * randn((256,), torch.float32, 41)).to(torch.bfloat16)
@@ -638,6 +807,7 @@ def check_sdxl_extremes(errs) -> dict:
            "GroupNorm batch-2 row differs from its solo run")
     del x, row
     torch.cuda.empty_cache()
+    gn_b8 = check_gn_2e31(gamma, beta, errs)
     n = (XL_SIZE // 8) ** 2
     q, k, v = (randn((1, n, 1, 512), torch.bfloat16, 43 + i) for i in range(3))
     torch.cuda.synchronize()
@@ -647,7 +817,7 @@ def check_sdxl_extremes(errs) -> dict:
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     ms = device_ms(lambda: attention.dot_product_attention(q, k, v), 3)
-    return {"gn_batch2_check": gn_b2,
+    return {"gn_batch2_check": gn_b2, "gn_batch8_check": gn_b8,
             "vae_mid_attention": {"shape": [1, n, 1, 512], "plain_ms": ms,
                                   "peak_extra_bytes": extra}}
 
@@ -682,7 +852,9 @@ def sdxl_phase(errs) -> tuple:
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    captured = {k: CAPTURE_RUNS * v for k, v in per_request.items()}
     reset_counts()
+    warm = pipe.warmup(XL_SIZE, XL_SIZE, steps=STEPS)  # the none bucket
     latency, pngs = [], {}
     for seed in range(1, XL_LATENCY_SAMPLES):
         t1 = time.perf_counter()
@@ -692,19 +864,21 @@ def sdxl_phase(errs) -> tuple:
     t1 = time.perf_counter()
     expect(worker.run_job(spec(1))[0] == pngs[1], "SDXL: same seed gives identical PNG bytes")
     latency.append(time.perf_counter() - t1)
-    launches = counts()  # the kernels line's SDXL launches
-    expect(launches == {k: XL_LATENCY_SAMPLES * v for k, v in per_request.items()},
-           f"SDXL requests launched {launches}, expected {XL_LATENCY_SAMPLES} x {per_request}")
+    launches = counts()  # the kernels line's SDXL launches: the bucket's capture
+    expect(launches == captured, f"SDXL requests launched {launches}, expected the "
+                                 f"capture's {captured} (replays go through no wrapper)")
 
+    # each new bucket is captured on its first request, then replayed
     cfg_spec = spec(7, guidance_scale=2.0, negative_prompt="blurry, low quality")
     expect(pipe.cfg_mode(cfg_spec.guidance_scale) == "cfg", "guidance 2.0 is not the cfg mode")
     reset_counts()
-    t1 = time.perf_counter()
     cfg_png = worker.run_job(cfg_spec)[0]
+    expect(counts() == captured, f"SDXL cfg bucket's capture launched {counts()}, "
+                                 f"expected {captured}")
+    t1 = time.perf_counter()
+    expect(worker.run_job(cfg_spec)[0] == cfg_png, "SDXL cfg: same seed gives identical bytes")
     cfg_s = time.perf_counter() - t1
     check_png(cfg_png, XL_SIZE)
-    expect(counts() == per_request, f"SDXL cfg request launched {counts()}, "
-                                    f"expected {per_request}")
     expect(cfg_png != worker.run_job(spec(7, guidance_scale=2.0))[0],
            "SDXL cfg: the negative prompt changed nothing")
 
@@ -715,10 +889,13 @@ def sdxl_phase(errs) -> tuple:
                  for i, (gi, ni) in enumerate(zip(g, negs))]
         expect(worker.batchable(*specs), f"SDXL {mode} specs not batchable")
         reset_counts()
-        t1 = time.perf_counter()
         out = worker.run_jobs(specs)
+        expect(counts() == captured, f"SDXL run_jobs {mode} bucket's capture launched "
+                                     f"{counts()}, expected {captured}")
+        t1 = time.perf_counter()
+        again = worker.run_jobs(specs)
         batch_s = time.perf_counter() - t1
-        expect(counts() == per_request, f"SDXL run_jobs {mode} launched {counts()}")
+        expect(again == out, f"SDXL run_jobs {mode}: a replay gave other bytes")
         same = [png == worker.run_job(s)[0] for (png, _), s in zip(out, specs)]
         expect(all(same), f"SDXL {mode}: batch rows vs solo runs identical: {same}")
         batches[mode] = {"batch2_s": batch_s, "rows_identical_to_solo": same}
@@ -726,8 +903,12 @@ def sdxl_phase(errs) -> tuple:
     requests_s = time.perf_counter() - t0
     end_phase("sdxl requests")
 
-    prof = profile(lambda: worker.run_job(spec(60)))
-    log({"profile_sdxl_batch1": prof})
+    before = graph_vs_eager(worker, {"none": spec(1), "cfg": cfg_spec}, XL_EAGER_SAMPLES,
+                            {"flash_mma_kernel": XL_PER_REQUEST["flash"],
+                             "gn_cluster_kernel": XL_PER_REQUEST["gn"]})
+    prof, prof_eager = before["profile_graph"], before["profile_eager"]
+    log({"profile_sdxl_batch1": prof, "profile_sdxl_eager": prof_eager})
+    buckets = bucket_stats(pipe)
     lat_ms = [1e3 * t for t in latency]
     line = {"sdxl": {
         "card": smi_line(), "host_cpu": host_cpu(), "size": XL_SIZE, "steps": STEPS,
@@ -738,12 +919,31 @@ def sdxl_phase(errs) -> tuple:
         "kernel_launches_per_request": prof["kernel_launches"],
         "busy_share": prof["busy_share"], "port_kernels": prof["port_kernels"],
         "port_launches_per_request": per_request,
+        "eager": {"p50_ms_batch1": before["eager_p50_ms"], "min_ms_batch1": before["eager_min_ms"],
+                  "max_ms_batch1": before["eager_max_ms"], "latency_ms_batch1": before["eager_ms"],
+                  "kernel_ms_per_request": prof_eager["device_busy_ms"],
+                  "kernel_launches_per_request": prof_eager["kernel_launches"],
+                  "busy_share": prof_eager["busy_share"]},
+        "graph_vs_eager": before["graph_vs_eager"], "host_ms": before["host_ms"],
+        "warmup_none_batch1": {"seconds": warm["seconds"], "capture_s": warm["capture_s"],
+                               "reserved_bytes": warm["reserved_bytes"]},
+        "buckets": buckets, "graph_pool_bytes": sum(b["reserved_bytes"] for b in buckets),
         "flash_ms_per_request": rows["flash"]["ms"], "gn_ms_per_request": rows["gn"]["ms"],
         "peak_memory_bytes": peak, "requests_s": requests_s,
         "vae_mid_attention": extremes["vae_mid_attention"]}}
-    del worker, pipe
-    torch.cuda.empty_cache()
+    del pipe
+    line["sdxl"]["freed_bytes_on_delete"] = delete_pipeline(worker)
     return rows, launches, line
+
+
+def delete_pipeline(worker) -> int:
+    """Drop the worker's pipeline, its graphs and their pool; the bytes the
+    card's allocator gave back."""
+    reserved = torch.cuda.memory_reserved()
+    worker.pipeline = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return reserved - torch.cuda.memory_reserved()
 
 
 # ---------------------------------------------------------------------------
@@ -930,11 +1130,6 @@ def main() -> int:
         return 1
     smi = smi_line()
     log(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # batch invariance and run-to-run identity: no per-shape autotuning
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
 
     t0 = time.perf_counter()
     so = _build.build()
@@ -957,7 +1152,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     worker = CudaPipelineWorker(pipe)
     seen = census(pipe)
-    pipe.generate("warmup", height=SIZE, width=SIZE, num_inference_steps=STEPS, batch=8, seed=0)
     # one kernel launch per flash and per GroupNorm call (the fused launch
     # counts once in gn, gn_stats and gn_apply)
     gn_calls = sum(c for k, c in seen.items() if k[0] == "gn")
@@ -979,15 +1173,37 @@ def main() -> int:
 
     spec = GenSpec("a mountain at sunset", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
                    seed=5)
-    prof1 = profile(lambda: worker.run_job(spec))
-    log({"profile_batch1": prof1})
+    t0 = time.perf_counter()
+    census_kernels = {"flash_mma_kernel": per_request["flash"],
+                      "gn_cluster_kernel": per_request["gn"]}
+    before = graph_vs_eager(worker, {"batch1": spec}, EAGER_SAMPLES, census_kernels)
+    prof1, prof_eager = before.pop("profile_graph"), before.pop("profile_eager")
+    log({"profile_batch1": prof1, "profile_eager_batch1": prof_eager})
     # the card's own record: the fused kernel ran, the separate apply kernel did not
-    expect(prof1["port_kernels"].get("gn_cluster_kernel", 0) > 0
-           and "gn_apply_kernel" not in prof1["port_kernels"],
+    expect("gn_apply_kernel" not in prof1["port_kernels"],
            f"profiled request ran {prof1['port_kernels']}")
-    log({"profile_batch8": profile(lambda: worker.run_jobs([spec] * 8))})
-    del worker, pipe
-    torch.cuda.empty_cache()
+    prof8 = profile(lambda: worker.run_jobs([spec] * 8))
+    log({"profile_batch8": prof8})
+    # the kernels take the batch: one launch per call at batch 8 as at batch 1
+    expect({k: prof8["port_kernels"].get(k, 0) for k in census_kernels} == census_kernels,
+           f"a profiled batch-8 replay ran {prof8['port_kernels']}")
+    device_rng = check_device_rng(pipe)
+    del pipe
+    freed = delete_pipeline(worker)
+    del worker
+    end_phase("graph against eager")
+    log({"graph_vs_eager_s": time.perf_counter() - t0, "card": smi, **before,
+         "device_rng": device_rng, "freed_bytes_on_delete": freed,
+         "before_after_batch1": {
+             "eager": {"p50_ms": before["eager_p50_ms"], "min_ms": before["eager_min_ms"],
+                       "max_ms": before["eager_max_ms"],
+                       "busy_share": prof_eager["busy_share"],
+                       "kernel_ms": prof_eager["device_busy_ms"],
+                       "kernel_launches": prof_eager["kernel_launches"]},
+             "graph": {"p50_ms": result["p50_ms_batch1"], "min_ms": result["min_ms_batch1"],
+                       "max_ms": result["max_ms_batch1"], "busy_share": prof1["busy_share"],
+                       "kernel_ms": prof1["device_busy_ms"],
+                       "kernel_launches": prof1["kernel_launches"]}}})
 
     t0 = time.perf_counter()
     loaded = loader_phase(per_request)

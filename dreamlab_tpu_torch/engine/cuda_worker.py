@@ -9,6 +9,11 @@ comes from its own seed, as in a solo run, its guidance and negative prompt
 are its own, and the library calls run one row at a time
 (``ops/batching.py``), the doubled batch of classic CFG included.
 
+On the card each request replays its shape bucket's CUDA graph
+(``pipeline.py``); the worker's lock serializes capture and replay.
+``warmup=True`` captures the ``default_size`` bucket (batch 1, 4 steps)
+when the worker is built.
+
 Styles (LoRA), the refiner, ControlNet, progress callbacks and img2img come
 with later slices; a spec that asks for one is refused with ``ValueError``.
 """
@@ -48,10 +53,16 @@ def _new_seed() -> int:
 class CudaPipelineWorker:
     """A single-checkpoint serving worker on one CUDA device."""
 
-    def __init__(self, pipeline: LCMPipeline, worker_id: int = 0):
+    def __init__(self, pipeline: LCMPipeline, worker_id: int = 0, *,
+                 default_size: Tuple[int, int] = (512, 512), warmup: bool = False):
         self.pipeline = pipeline
         self.worker_id = worker_id
+        # serializes the pipeline's graph captures and replays
         self._lock = threading.Lock()
+        if warmup:
+            w, h = default_size
+            with self._lock:
+                pipeline.warmup(h, w)
 
     @staticmethod
     def _check_supported(spec: GenSpec) -> None:

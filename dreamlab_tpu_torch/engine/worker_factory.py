@@ -1,54 +1,63 @@
 """Worker factory: checkpoint path -> detected arch -> loaded CUDA worker
 (port of ``dreamlab_tpu/engine/worker_factory.py::create_tpu_worker``).
 
-A diffusers directory is classified as SD1.5 or SDXL by its UNet's
-``cross_attention_dim`` (``unet/config.json``, as the JAX package's
-``utils/model_detector.py::diffusers_dir_detector`` and
-``detect_worker_type`` do), loaded by ``loader.load_pipeline`` and served by
-a ``CudaPipelineWorker``. What later slices bring is refused with
-``ValueError``: single files, LoRAs, textual-inversion embeddings,
-ControlNets and the refiner ensemble.
+A path is classified by the model detector (``utils/model_detector.py``:
+tensor shapes and configs, never file names), loaded by
+``loader.load_pipeline`` (a diffusers directory or a single LDM-layout
+file) and served by a ``CudaPipelineWorker``. LoRAs and ControlNets cannot
+serve on their own and raise ``WorkerCreationError``; what later slices
+bring (mode LoRAs, textual-inversion embeddings, attached ControlNets, the
+refiner ensemble) is refused with ``ValueError``.
 """
 
 from __future__ import annotations
 
-import json
 import logging
-import os
 import time
+from typing import Optional, Tuple
 
 import torch
 
-from ..loader import classify_arch, load_pipeline
+from ..loader import load_pipeline
 from ..pipeline import LCMPipeline, resolve_device
+from ..utils.model_detector import DetectionError, detect_model
 from .cuda_worker import CudaPipelineWorker
 
 logger = logging.getLogger(__name__)
 
 
+class WorkerCreationError(Exception):
+    pass
+
+
 def detect_worker_type(model_path: str) -> str:
-    """'sd15' | 'sdxl' of a diffusers directory; ValueError for anything else."""
-    if os.path.isfile(model_path):
-        raise ValueError(f"{model_path} is a single file: single-file checkpoints (and "
-                         "their LoRA/ControlNet detection) come with the next slice of "
-                         "the port; pass a diffusers directory")
-    unet_json = os.path.join(model_path, "unet", "config.json")
-    if not os.path.exists(unet_json):
-        if os.path.exists(os.path.join(model_path, "config.json")):
-            raise ValueError(f"{model_path} has no unet/ (a ControlNet or another single "
-                             "model?): ControlNets come with the ControlNet slice")
-        raise ValueError(f"{model_path} is not a diffusers checkpoint directory "
-                         "(no unet/config.json)")
-    with open(unet_json) as f:
-        cad = json.load(f).get("cross_attention_dim")
-    return classify_arch(cad)
+    """'sd15' | 'sdxl' of a checkpoint, from its tensor shapes; raises
+    WorkerCreationError for what cannot serve as a model."""
+    try:
+        info = detect_model(model_path)
+    except DetectionError as e:
+        raise WorkerCreationError(str(e)) from e
+    if info.is_lora:
+        raise WorkerCreationError(f"{model_path} is a LoRA, not a checkpoint")
+    if info.is_controlnet:
+        raise WorkerCreationError(
+            f"{model_path} is a ControlNet — attach it to a mode via the "
+            "modes.yaml 'controlnet:' key, it cannot serve standalone")
+    if info.arch is None:
+        raise WorkerCreationError(
+            f"unsupported model (cross_attention_dim={info.cross_attention_dim}): "
+            f"{model_path}")
+    return info.arch
 
 
 def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
                        device=None, loras=None, embeddings=None, controlnet=None,
-                       refiner=None) -> CudaPipelineWorker:
-    """Load a diffusers checkpoint directory and wrap it in a CudaPipelineWorker
-    on ``device`` (None = the CUDA device; "cpu" runs the plain versions)."""
+                       refiner=None,
+                       warmup_size: Optional[Tuple[int, int]] = None) -> CudaPipelineWorker:
+    """Load a checkpoint (diffusers directory or single file) and wrap it in a
+    CudaPipelineWorker on ``device`` (None = the CUDA device; "cpu" runs the
+    plain versions). warmup_size: (width, height) of a bucket to capture
+    before the worker is returned."""
     for given, what, where in ((loras, "LoRAs", "the LoRA slice"),
                                (embeddings, "textual-inversion embeddings", "the LoRA slice"),
                                (controlnet, "ControlNets", "the ControlNet slice"),
@@ -61,4 +70,6 @@ def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
     pipeline = LCMPipeline(load_pipeline(model_path, device=dev), dtype=dtype, device=dev)
     logger.info("worker %d: loaded %s (%s) in %.1fs", worker_id, model_path, arch,
                 time.perf_counter() - t0)
+    if warmup_size:
+        return CudaPipelineWorker(pipeline, worker_id, default_size=warmup_size, warmup=True)
     return CudaPipelineWorker(pipeline, worker_id)

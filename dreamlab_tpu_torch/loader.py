@@ -12,7 +12,7 @@ The port keeps torch's own layouts (conv OIHW, linear ``[out, in]``), so the
 weights load as stored: norms become ``{"scale", "bias"}``, and the 1x1-conv
 ``proj_in``/``proj_out`` of SD1.5 checkpoints become linears. Tensors keep
 the file's dtype (the pipeline casts them) and are moved to ``device``.
-Single-file (LDM-layout) checkpoints come with a later slice.
+A single file (LDM layout) goes to ``loader_single_file.py``.
 """
 
 from __future__ import annotations
@@ -348,13 +348,14 @@ def classify_arch(cross_attention_dim: int) -> str:
 
 
 def load_pipeline(model_dir: str, *, device=None) -> PipelineBundle:
-    """Load a diffusers-layout checkpoint directory into a PipelineBundle
+    """Load a diffusers-layout checkpoint directory, or a single LDM-layout
+    file (``loader_single_file.load_single_file``), into a PipelineBundle
     whose tensors lie on ``device`` (None = the CUDA device) in the file's
     dtype."""
     if os.path.isfile(model_dir):
-        raise ValueError(f"{model_dir} is a single file: single-file (LDM-layout) "
-                         "checkpoints come with the next slice of the port; pass a "
-                         "diffusers directory")
+        from .loader_single_file import load_single_file
+
+        return load_single_file(model_dir, device=device)
     dev = resolve_device(device)
 
     def sub(name):

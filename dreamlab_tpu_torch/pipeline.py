@@ -1,9 +1,19 @@
 """txt2img pipeline on PyTorch (port of ``dreamlab_tpu/pipeline.py::LCMPipeline``).
 
-The JAX package's program (``pipeline.py`` ``_build``: ``encode`` ->
-``lax.scan`` of UNet + LCM step -> VAE decode -> uint8) as eager PyTorch:
-CLIP encode, a Python loop of ``unet.forward`` + ``lcm_step``,
-``vae.decode(denoised / scaling_factor)``, clip, round, uint8.
+A request runs in two parts, as in the JAX package:
+
+- **staging** on the host: tokenize, draw host noise, build the LCM
+  w-embedding, the micro-conditioning ids and the per-row guidance;
+- **the bucket's program**: CLIP encode, the 4-step loop of
+  ``unet.forward`` + ``lcm_step``, ``vae.decode(denoised / scaling_factor)``,
+  clip, round, uint8. The JAX package traces and jits it once per shape
+  bucket (``_build``, ``_get_compiled``); here it is captured once per
+  bucket as a CUDA graph and replayed (``_GraphProgram``). The bucket key is
+  (batch, h_lat, w_lat, steps, cfg_mode, rng_mode, original_inference_steps):
+  the schedule's entries are baked into the program as Python floats, so the
+  original step count that shapes the schedule belongs to the key. On the
+  CPU a bucket's program is the same function run eagerly
+  (``_EagerProgram``), cached under the same key.
 
 SD1.5 and SDXL checkpoints. SDXL encodes with two text towers (the
 sequences concatenated, the pooled embedding from the second) and
@@ -18,15 +28,22 @@ chosen per call as in the JAX package:
   mixed per row as ``uncond + g * (cond - uncond)``.
 - ``none``: guidance <= 1 on a non-LCM UNet (SDXL with an LCM-LoRA merged).
 
-Noise comes from the host (``rng_mode="host"``): latents and per-step noise
-from ``np.random.RandomState(seed)`` in NCHW, transposed, exactly as in the
-JAX package, so a seed gives the same noise in both. Device RNG, segments
-(the refiner ensemble), img2img and callbacks come later.
+Noise: ``rng_mode="host"`` (the default, or ``DREAMLAB_RNG``) draws latents
+and per-step noise from ``np.random.RandomState(seed)`` in NCHW, transposed,
+exactly as the JAX package does, so a seed gives the same noise in both.
+``rng_mode="device"`` draws them on the device from a ``torch.Generator``
+seeded with the seed, straight into the program's inputs: deterministic per
+seed on one device, and not equal to host noise (as the JAX package's
+device mode is not). Explicit ``latents`` / ``step_noises`` force host
+noise. Segments (the refiner ensemble), img2img and callbacks come later.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -43,8 +60,12 @@ from .scheduler.lcm import (
 )
 from .utils.tokenizer import CLIPTokenizer
 
+logger = logging.getLogger(__name__)
+
 # the refiner's uncond-branch aesthetic score (diffusers' default)
 NEGATIVE_AESTHETIC_SCORE = 2.5
+
+BucketKey = Tuple[int, int, int, int, str, str, Optional[int]]
 
 
 @dataclasses.dataclass
@@ -75,6 +96,17 @@ class GenerationResult:
     latents: np.ndarray  # [B, h, w, 4] fp32 final denoised latents
 
 
+@dataclasses.dataclass
+class _Staged:
+    """One request after host staging: its bucket and its program's inputs
+    (host arrays; in device-RNG mode without the two noise arrays)."""
+
+    key: BucketKey
+    inputs: Dict[str, np.ndarray]
+    seed: int
+    init_noise_sigma: float
+
+
 def resolve_device(device=None) -> torch.device:
     """The CUDA device unless the caller names another; never a silent CPU run."""
     dev = torch.device("cuda" if device is None else device)
@@ -82,6 +114,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the plain versions on the CPU")
     return dev
+
+
+def deterministic_backends() -> None:
+    """The backend settings both serving invariants rest on (the same seed
+    gives the same bytes; a batch row equals its solo run), and that graph
+    capture needs (no autotuning while a graph is being captured): cuDNN
+    deterministic without benchmark autotuning, TF32 off for matmuls and
+    cuDNN. The flags are process-wide; every pipeline sets them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
 
 
 def _place_params(tree, dtype: torch.dtype, device: torch.device):
@@ -98,6 +142,89 @@ def _place_params(tree, dtype: torch.dtype, device: torch.device):
     if t.ndim == 4:
         t = t.contiguous(memory_format=torch.channels_last)
     return t
+
+
+def _draw_device_noise(seed: int, lat0: torch.Tensor, noises: torch.Tensor,
+                       init_noise_sigma: float) -> None:
+    """Device RNG: fill the program's noise inputs in place from a generator
+    on their device seeded with the seed (latents first, scaled by the init
+    sigma, then the per-step noise)."""
+    gen = torch.Generator(device=lat0.device).manual_seed(seed & 0x7FFFFFFF)
+    lat0.normal_(generator=gen).mul_(init_noise_sigma)
+    noises.normal_(generator=gen)
+
+
+def _device_inputs(pipe: "LCMPipeline", staged: _Staged) -> Dict[str, torch.Tensor]:
+    """A request's program inputs on the pipeline's device: the staged host
+    arrays, and in device-RNG mode the noise drawn there."""
+    x = {k: torch.from_numpy(v).to(pipe.device) for k, v in staged.inputs.items()}
+    if "lat0" not in x:
+        x.update(pipe._noise_buffers(staged.key))
+        _draw_device_noise(staged.seed, x["lat0"], x["noises"], staged.init_noise_sigma)
+    return x
+
+
+class _EagerProgram:
+    """A bucket's program run as called: the CPU's program, and on the card
+    the private eager route (``LCMPipeline._generate_eager``)."""
+
+    def __init__(self, key: BucketKey):
+        self.key = key
+
+    def __call__(self, pipe: "LCMPipeline", staged: _Staged):
+        with torch.inference_mode():
+            images, latents = pipe._program(self.key, _device_inputs(pipe, staged))
+            return images.cpu().numpy(), latents.cpu().numpy()
+
+
+class _GraphProgram:
+    """A bucket's program as one captured CUDA graph.
+
+    Static inputs live at fixed addresses: each call copies the staged host
+    arrays into them (device RNG draws straight into the noise inputs),
+    replays the graph, and copies images and latents to the host before it
+    returns, since the next replay overwrites them. Capture follows one
+    eager run on a side stream, which builds the kernel library, sets the
+    kernels' attributes and lets cuBLAS and cuDNN settle, none of which may
+    happen while capturing. The graphs of one pipeline share its memory pool;
+    the caller serializes capture and replay (the worker's lock). The
+    program keeps no reference to the pipeline: deleting the pipeline
+    frees its graphs and their pool.
+    """
+
+    def __init__(self, pipe: "LCMPipeline", staged: _Staged):
+        dev = pipe.device
+        key = staged.key
+        with torch.inference_mode():
+            self.inputs = _device_inputs(pipe, staged)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                pipe._program(key, self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pipe._graph_pool):
+                self.outputs = pipe._program(key, self.inputs)
+            torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        # what this capture added to the shared pool (later buckets reuse
+        # the blocks earlier ones freed, so they add less)
+        self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def __call__(self, pipe: "LCMPipeline", staged: _Staged):
+        with torch.inference_mode():
+            for name, arr in staged.inputs.items():
+                self.inputs[name].copy_(torch.from_numpy(arr))
+            if "lat0" not in staged.inputs:
+                _draw_device_noise(staged.seed, self.inputs["lat0"], self.inputs["noises"],
+                                   staged.init_noise_sigma)
+            self.graph.replay()
+            images, latents = self.outputs
+            return images.cpu().numpy(), latents.cpu().numpy()
 
 
 class LCMPipeline:
@@ -119,6 +246,7 @@ class LCMPipeline:
             raise ValueError(f"unknown arch {bundle.arch!r}")
         self.dtype = dtype
         self.device = resolve_device(device)
+        deterministic_backends()
         self.text_params = _place_params(bundle.text_params, dtype, self.device)
         self.text_params_2 = _place_params(bundle.text_params_2, dtype, self.device)
         self.unet_params = _place_params(bundle.unet_params, dtype, self.device)
@@ -128,6 +256,10 @@ class LCMPipeline:
         self.vae_scale = bundle.vae_cfg.scale_factor
         self.latent_channels = bundle.vae_cfg.latent_channels
         self._schedules: Dict[Tuple, LCMSchedule] = {}
+        # bucket key -> program (a captured graph on the card, eager on the CPU)
+        self._compiled: Dict[BucketKey, Any] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                            else None)
 
     def cfg_mode(self, guidance_scale) -> str:
         """'wcond' for an LCM UNet (guidance as the w-embedding), else 'cfg'
@@ -183,41 +315,96 @@ class LCMPipeline:
         noises = noises.transpose(0, 1, 3, 4, 2)
         return np.ascontiguousarray(lat), np.ascontiguousarray(noises)
 
-    def _encode(self, texts):
-        """Text conditioning of ``texts``: (context [B, 77, C], pooled [B, P]
+    def _noise_buffers(self, key: BucketKey) -> Dict[str, torch.Tensor]:
+        """Uninitialised lat0 [B, h, w, C] and noises [S, B, h, w, C] for a
+        bucket whose noise is drawn on the device."""
+        batch, h_lat, w_lat, steps = key[:4]
+        c = self.latent_channels
+        return {"lat0": torch.empty((batch, h_lat, w_lat, c), device=self.device),
+                "noises": torch.empty((steps, batch, h_lat, w_lat, c), device=self.device)}
+
+    # ------------------------------------------------------------------
+    # the bucket's program: device tensors in, images and latents out
+    # ------------------------------------------------------------------
+
+    def _encode(self, ids, ids_2=None):
+        """Text conditioning of token ids: (context [B, 77, C], pooled [B, P]
         or None)."""
         b = self.bundle
-        dev = self.device
-        ids = torch.from_numpy(b.tokenizer(texts)).to(dev, torch.int64)
         if b.arch != "sdxl":
             return clip_text.encode_text(self.text_params, ids, b.text_cfg)[0], None
         if self.text_params_2 is None:
             # refiner layout: the one bigG tower gives the context and the
             # projected pooled embedding of the micro-conditioning
             return clip_text.encode_text(self.text_params, ids, b.text_cfg)
-        ids_2 = torch.from_numpy(b.tokenizer_2(texts)).to(dev, torch.int64)
         seq1, _ = clip_text.encode_text(self.text_params, ids, b.text_cfg)
         seq2, pooled = clip_text.encode_text(self.text_params_2, ids_2, b.text_cfg_2)
         return torch.cat([seq1, seq2], dim=-1), pooled
 
-    def generate(self, prompt, *, height: int = 512, width: int = 512,
-                 num_inference_steps: int = 4,
-                 original_inference_steps: Optional[int] = None,
-                 guidance_scale: Any = 1.0, negative_prompt: Any = None,
-                 seed: Optional[int] = None, batch: Optional[int] = None,
-                 latents: Optional[np.ndarray] = None,
-                 step_noises: Optional[np.ndarray] = None,
-                 aesthetic_score: float = 6.0) -> GenerationResult:
-        """Generate images: uint8 [B, H, W, 3] plus the final latents.
+    def _program(self, key: BucketKey, x: Dict[str, torch.Tensor]):
+        """Encode, denoise and decode one bucket's batch from its inputs
+        ``x`` (see ``_stage``); returns (uint8 images [B, H, W, 3], fp32
+        denoised latents [B, h, w, C]) on the device. Reads its inputs and
+        never writes them, so a captured graph can replay it."""
+        _, _, _, steps, mode, _, original_steps = key
+        b = self.bundle
+        dev = self.device
+        schedule = self._schedule(steps, original_steps)
+        ctx, pooled = self._encode(x["ids"], x.get("ids_2"))
+        kw = {}
+        if mode == "wcond":
+            kw["timestep_cond"] = x["w_emb"]
+        if mode == "cfg":
+            ctx_neg, pooled_neg = self._encode(x["ids_neg"], x.get("ids_2_neg"))
+            ctx = torch.cat([ctx_neg, ctx])
+            g = x["guidance"].reshape(-1, 1, 1, 1)
+        if b.arch == "sdxl":
+            if mode == "cfg":  # the uncond rows, then the cond rows
+                pooled = torch.cat([pooled_neg, pooled])
+            kw.update(added_text_embeds=pooled, added_time_ids=x["time_ids"])
+        rows = ctx.shape[0]
+        lat, noises = x["lat0"], x["noises"]
+        for i in range(schedule.num_steps):
+            t = torch.full((rows,), int(schedule.timesteps[i]), dtype=torch.int32, device=dev)
+            xin = torch.cat([lat, lat]) if mode == "cfg" else lat
+            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, t, ctx, **kw)
+            if mode == "cfg":
+                uncond, cond = noise_pred.chunk(2)
+                noise_pred = uncond + g * (cond - uncond)
+            lat, denoised = lcm_step(schedule, i, noise_pred, lat, noises[i],
+                                     prediction_type=b.scheduler_cfg.prediction_type)
+        img = vae.decode(self.vae_params, b.vae_cfg, denoised / b.vae_cfg.scaling_factor)
+        img = torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
+        return torch.round(img * 255.0).to(torch.uint8), denoised
 
-        guidance_scale: a scalar or one value per row; it picks the guidance
-        mode (``cfg_mode``) and weighs each row. negative_prompt: None (""),
-        one string, or one per row; read in cfg mode only. latents /
-        step_noises: explicit raw initial noise [B, h, w, 4] and per-step
-        noise [S, B, h, w, 4] (the worker's coalesced batches give each row
-        its own seed's noise). aesthetic_score: the refiner's
-        micro-conditioning.
-        """
+    def _get_compiled(self, staged: _Staged):
+        """The program of ``staged``'s bucket: captured on its first request
+        on the card (no eager fallback: a failed capture raises), the eager
+        function on the CPU."""
+        program = self._compiled.get(staged.key)
+        if program is None:
+            if self.device.type == "cuda":
+                program = _GraphProgram(self, staged)
+                logger.info("captured bucket %s in %.2fs (+%d bytes reserved)", staged.key,
+                            program.capture_s, program.reserved_bytes)
+            else:
+                program = _EagerProgram(staged.key)
+            self._compiled[staged.key] = program
+        return program
+
+    # ------------------------------------------------------------------
+    # staging and the public API
+    # ------------------------------------------------------------------
+
+    def _stage(self, prompt, *, height: int = 512, width: int = 512,
+               num_inference_steps: int = 4,
+               original_inference_steps: Optional[int] = None,
+               guidance_scale: Any = 1.0, negative_prompt: Any = None,
+               seed: Optional[int] = None, batch: Optional[int] = None,
+               latents: Optional[np.ndarray] = None,
+               step_noises: Optional[np.ndarray] = None,
+               rng: Optional[str] = None, aesthetic_score: float = 6.0) -> _Staged:
+        """Host staging of one request (``generate``'s arguments)."""
         b = self.bundle
         divisor = self.vae_scale * 2 ** (b.unet_cfg.num_blocks - 1)
         if height % divisor or width % divisor:
@@ -241,53 +428,109 @@ class LCMPipeline:
         if len(negs) != bsz:
             raise ValueError(f"negative_prompt has {len(negs)} entries for batch {bsz}")
 
+        rng_mode = rng or os.environ.get("DREAMLAB_RNG", "host")
+        if rng_mode not in ("host", "device"):
+            raise ValueError(f"unknown rng mode {rng_mode!r} (host | device)")
+        if latents is not None or step_noises is not None:
+            rng_mode = "host"  # explicit noise forces the host path
         schedule = self._schedule(num_inference_steps, original_inference_steps)
         h_lat, w_lat = height // self.vae_scale, width // self.vae_scale
-        lat0, noises = self._sample_noise(seed, bsz, h_lat, w_lat, num_inference_steps,
-                                          schedule.init_noise_sigma)
-        if latents is not None:
-            # provided latents are raw noise, scaled by init sigma
-            lat0 = np.asarray(latents, np.float32) * schedule.init_noise_sigma
-            if lat0.shape != (bsz, h_lat, w_lat, self.latent_channels):
-                raise ValueError(f"unexpected latents shape {lat0.shape}")
-        if step_noises is not None:
-            noises = np.asarray(step_noises, np.float32)
-            want = (num_inference_steps, bsz, h_lat, w_lat, self.latent_channels)
-            if noises.shape != want:
-                raise ValueError(f"unexpected step_noises shape {noises.shape}; want {want}")
-        dev = self.device
-        with torch.inference_mode():
-            lat = torch.from_numpy(lat0).to(dev)
-            noises_t = torch.from_numpy(noises).to(dev)
-            ctx, pooled = self._encode(prompts)
-            kw = {}
-            if mode == "wcond":
-                kw["timestep_cond"] = torch.from_numpy(
-                    guidance_scale_embedding(gs - 1.0, b.unet_cfg.time_cond_proj_dim)).to(dev)
+        c = self.latent_channels
+        inputs: Dict[str, np.ndarray] = {}
+        if rng_mode == "host":
+            lat0, noises = self._sample_noise(seed, bsz, h_lat, w_lat, num_inference_steps,
+                                              schedule.init_noise_sigma)
+            if latents is not None:
+                # provided latents are raw noise, scaled by init sigma
+                lat0 = np.asarray(latents, np.float32) * schedule.init_noise_sigma
+                if lat0.shape != (bsz, h_lat, w_lat, c):
+                    raise ValueError(f"unexpected latents shape {lat0.shape}")
+            if step_noises is not None:
+                noises = np.asarray(step_noises, np.float32)
+                want = (num_inference_steps, bsz, h_lat, w_lat, c)
+                if noises.shape != want:
+                    raise ValueError(f"unexpected step_noises shape {noises.shape}; "
+                                     f"want {want}")
+            inputs.update(lat0=np.ascontiguousarray(lat0, np.float32),
+                          noises=np.ascontiguousarray(noises, np.float32))
+
+        def tokens(tok, texts):
+            return np.asarray(tok(texts), np.int64)
+
+        inputs["ids"] = tokens(b.tokenizer, prompts)
+        if mode == "cfg":
+            inputs["ids_neg"] = tokens(b.tokenizer, negs)
+            inputs["guidance"] = gs
+        two_towers = b.arch == "sdxl" and self.text_params_2 is not None
+        if two_towers:
+            inputs["ids_2"] = tokens(b.tokenizer_2, prompts)
             if mode == "cfg":
-                ctx_neg, pooled_neg = self._encode(negs)
-                ctx = torch.cat([ctx_neg, ctx])
-                g = torch.from_numpy(gs).to(dev).reshape(-1, 1, 1, 1)
-            if b.arch == "sdxl":
-                time_ids = torch.from_numpy(self._time_ids(
-                    height, width, bsz, aesthetic_score, cfg_mode=mode)).to(dev)
-                if mode == "cfg":  # [2, B, n]: the uncond rows, then the cond rows
-                    pooled = torch.cat([pooled_neg, pooled])
-                    time_ids = torch.cat([time_ids[0], time_ids[1]])
-                kw.update(added_text_embeds=pooled, added_time_ids=time_ids)
-            rows = 2 * bsz if mode == "cfg" else bsz
-            for i in range(schedule.num_steps):
-                t = torch.full((rows,), int(schedule.timesteps[i]), dtype=torch.int32,
-                               device=dev)
-                x = torch.cat([lat, lat]) if mode == "cfg" else lat
-                noise_pred = unet.forward(self.unet_params, b.unet_cfg, x, t, ctx, **kw)
-                if mode == "cfg":
-                    uncond, cond = noise_pred.chunk(2)
-                    noise_pred = uncond + g * (cond - uncond)
-                lat, denoised = lcm_step(schedule, i, noise_pred, lat, noises_t[i],
-                                         prediction_type=b.scheduler_cfg.prediction_type)
-            img = vae.decode(self.vae_params, b.vae_cfg, denoised / b.vae_cfg.scaling_factor)
-            img = torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
-            images = torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
-            latents_np = denoised.cpu().numpy()
-        return GenerationResult(images=images, seed=seed, latents=latents_np)
+                inputs["ids_2_neg"] = tokens(b.tokenizer_2, negs)
+        if mode == "wcond":
+            inputs["w_emb"] = guidance_scale_embedding(gs - 1.0, b.unet_cfg.time_cond_proj_dim)
+        if b.arch == "sdxl":
+            time_ids = self._time_ids(height, width, bsz, aesthetic_score, cfg_mode=mode)
+            if mode == "cfg":  # [2, B, n] -> the uncond rows, then the cond rows
+                time_ids = np.concatenate([time_ids[0], time_ids[1]])
+            inputs["time_ids"] = time_ids
+        key = (bsz, h_lat, w_lat, num_inference_steps, mode, rng_mode,
+               original_inference_steps)
+        return _Staged(key=key, inputs=inputs, seed=seed,
+                       init_noise_sigma=float(schedule.init_noise_sigma))
+
+    def warmup(self, height: int, width: int, steps: int = 4, batch: int = 1,
+               rng: Optional[str] = None) -> Dict[str, Any]:
+        """Capture a bucket ahead of its first request (on the CPU: create
+        its eager program). Returns the bucket key, the seconds the call
+        took and, on the card, the capture's seconds and reserved bytes."""
+        t0 = time.perf_counter()
+        staged = self._stage("warmup", height=height, width=width,
+                             num_inference_steps=steps, seed=0, batch=batch, rng=rng)
+        program = self._get_compiled(staged)
+        program(self, staged)
+        out = {"key": staged.key, "seconds": time.perf_counter() - t0,
+               "capture_s": getattr(program, "capture_s", None),
+               "reserved_bytes": getattr(program, "reserved_bytes", None)}
+        logger.info("warmup %dx%dx%d steps=%d in %.1fs", batch, height, width, steps,
+                    out["seconds"])
+        return out
+
+    def generate(self, prompt, *, height: int = 512, width: int = 512,
+                 num_inference_steps: int = 4,
+                 original_inference_steps: Optional[int] = None,
+                 guidance_scale: Any = 1.0, negative_prompt: Any = None,
+                 seed: Optional[int] = None, batch: Optional[int] = None,
+                 latents: Optional[np.ndarray] = None,
+                 step_noises: Optional[np.ndarray] = None,
+                 rng: Optional[str] = None,
+                 aesthetic_score: float = 6.0) -> GenerationResult:
+        """Generate images: uint8 [B, H, W, 3] plus the final latents.
+
+        guidance_scale: a scalar or one value per row; it picks the guidance
+        mode (``cfg_mode``) and weighs each row. negative_prompt: None (""),
+        one string, or one per row; read in cfg mode only. latents /
+        step_noises: explicit raw initial noise [B, h, w, 4] and per-step
+        noise [S, B, h, w, 4] (the worker's coalesced batches give each row
+        its own seed's noise); either forces host noise. rng: "host" or
+        "device" (None reads ``DREAMLAB_RNG``, default "host").
+        aesthetic_score: the refiner's micro-conditioning.
+
+        On the card the request replays its bucket's CUDA graph, captured on
+        the bucket's first request (or by ``warmup``); a failed capture or
+        replay raises.
+        """
+        staged = self._stage(
+            prompt, height=height, width=width, num_inference_steps=num_inference_steps,
+            original_inference_steps=original_inference_steps,
+            guidance_scale=guidance_scale, negative_prompt=negative_prompt, seed=seed,
+            batch=batch, latents=latents, step_noises=step_noises, rng=rng,
+            aesthetic_score=aesthetic_score)
+        images, latents_np = self._get_compiled(staged)(self, staged)
+        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+
+    def _generate_eager(self, prompt, **kwargs) -> GenerationResult:
+        """``generate`` without the bucket's graph: the same program run
+        eagerly (the before/after comparison of ``chip_smoke.py``)."""
+        staged = self._stage(prompt, **kwargs)
+        images, latents_np = _EagerProgram(staged.key)(self, staged)
+        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)

@@ -8,7 +8,9 @@ architectures with seeded random weights when no checkpoint is at hand. The
 init scheme is the JAX package's (uniform +-1/sqrt(fan_in), norms 1/0,
 embeddings N(0, 0.02)): activations stay finite in bf16 through 4 steps.
 ``write_diffusers_dir`` is the loader's inverse: ``loader.load_pipeline`` of
-what it writes gives the bundle back, leaf for leaf.
+what it writes gives the bundle back, leaf for leaf. ``write_single_file``
+does the same for an SD1.5 bundle in the LDM single-file layout, the inverse
+of ``loader_single_file.py``'s key tables.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 from typing import Dict
 
 import torch
@@ -317,3 +320,94 @@ def write_diffusers_dir(bundle: PipelineBundle, model_dir: str) -> str:
         json.dump({"_class_name": "LCMScheduler",
                    **dataclasses.asdict(bundle.scheduler_cfg)}, f, indent=1)
     return model_dir
+
+
+# ---------------------------------------------------------------------------
+# the single-file loader's inverse: SD1.5 in the LDM layout
+# ---------------------------------------------------------------------------
+
+_LDM_RES = {"norm1": "in_layers.0", "conv1": "in_layers.2", "time_emb_proj": "emb_layers.1",
+            "norm2": "out_layers.0", "conv2": "out_layers.3",
+            "conv_shortcut": "skip_connection"}
+
+
+def _ldm_unet_key(key: str, cfg: configs.UNetConfig) -> str:
+    """A diffusers UNet name -> its ``model.diffusion_model.*`` name."""
+    n = cfg.layers_per_block + 1  # LDM slots per level: the resnets, then the sampler
+
+    def res(rest):
+        stem, _, leaf = rest.partition(".")
+        return f"{_LDM_RES[stem]}.{leaf}"
+
+    fixed = (("time_embedding.cond_proj.", "time_embed.cond_proj."),
+             ("time_embedding.linear_1.", "time_embed.0."),
+             ("time_embedding.linear_2.", "time_embed.2."),
+             ("add_embedding.linear_1.", "label_emb.0.0."),
+             ("add_embedding.linear_2.", "label_emb.0.2."),
+             ("conv_in.", "input_blocks.0.0."), ("conv_norm_out.", "out.0."),
+             ("conv_out.", "out.2."))
+    for diff, ldm in fixed:
+        if key.startswith(diff):
+            return ldm + key[len(diff):]
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(resnets|attentions|downsamplers|upsamplers)"
+                 r"\.(\d+)\.(.+)", key)
+    if m:
+        side, block, kind, j, rest = m.group(1), int(m.group(2)), m.group(3), \
+            int(m.group(4)), m.group(5)
+        base = 1 + block * n if side == "down" else block * n
+        if kind == "resnets":
+            return f"{'input' if side == 'down' else 'output'}_blocks.{base + j}.0.{res(rest)}"
+        if kind == "attentions":
+            return f"{'input' if side == 'down' else 'output'}_blocks.{base + j}.1.{rest}"
+        if kind == "downsamplers":  # "conv.*" -> "op.*"
+            return f"input_blocks.{base + n - 1}.0.op.{rest[len('conv.'):]}"
+        sub = 2 if cfg.transformer_layers_per_block[cfg.num_blocks - 1 - block] else 1
+        return f"output_blocks.{base + n - 1}.{sub}.{rest}"
+    m = re.match(r"mid_block\.(resnets|attentions)\.(\d+)\.(.+)", key)
+    if m:
+        kind, j, rest = m.group(1), int(m.group(2)), m.group(3)
+        if kind == "attentions":
+            return f"middle_block.1.{rest}"
+        slot = 0 if j == 0 else 2 if cfg.has_mid_attention else 1
+        return f"middle_block.{slot}.{res(rest)}"
+    raise ValueError(f"no LDM name for UNet tensor {key!r}")
+
+
+def _ldm_vae_key(key: str, n_blocks: int) -> str:
+    """A diffusers AutoencoderKL decoder name -> its LDM name (without the
+    ``first_stage_model.`` prefix)."""
+    m = re.match(r"decoder\.up_blocks\.(\d+)\.(.*)", key)
+    if m:  # the up blocks run in reverse order between the layouts
+        key = f"decoder.up.{n_blocks - 1 - int(m.group(1))}.{m.group(2)}"
+    key = re.sub(r"\.resnets\.", ".block.", key)
+    for diff, ldm in (("upsamplers.0.conv", "upsample.conv"), ("conv_shortcut", "nin_shortcut"),
+                      ("mid_block.block.0", "mid.block_1"), ("mid_block.block.1", "mid.block_2"),
+                      ("mid_block.attentions.0", "mid.attn_1"),
+                      ("attn_1.group_norm", "attn_1.norm"), ("attn_1.to_out.0", "attn_1.proj_out"),
+                      ("attn_1.to_q", "attn_1.q"), ("attn_1.to_k", "attn_1.k"),
+                      ("attn_1.to_v", "attn_1.v"), ("conv_norm_out", "norm_out")):
+        key = key.replace(diff, ldm)
+    return key
+
+
+def write_single_file(bundle: PipelineBundle, path: str) -> str:
+    """Save an SD1.5 ``bundle`` as one LDM-layout safetensors file, each
+    tensor in its own dtype, with its tokenizer in ``<path stem>.tokenizer/``
+    and its scheduler config in ``<path stem>.scheduler_config.json``;
+    returns ``path``."""
+    if bundle.arch != "sd15":
+        raise ValueError(f"write_single_file writes SD1.5 bundles, got {bundle.arch!r}")
+    out = {"model.diffusion_model." + _ldm_unet_key(k, bundle.unet_cfg): t
+           for k, t in export_unet(bundle.unet_params).items()}
+    n = len(bundle.vae_cfg.block_out_channels)
+    out.update({"first_stage_model." + _ldm_vae_key(k, n): t
+                for k, t in export_vae_decoder(bundle.vae_params).items()})
+    out.update({"cond_stage_model.transformer." + k: t
+                for k, t in export_clip_text(bundle.text_params).items()})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    save_file(out, path, {"format": "pt"})
+    stem = os.path.splitext(path)[0]
+    _write_tokenizer(bundle.tokenizer, stem + ".tokenizer")
+    with open(stem + ".scheduler_config.json", "w") as f:
+        json.dump(dataclasses.asdict(bundle.scheduler_cfg), f, indent=1)
+    return path

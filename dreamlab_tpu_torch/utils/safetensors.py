@@ -27,11 +27,34 @@ DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
 _CODES = {v: k for k, v in DTYPES.items()}
 
 
+def _read_header(f, path: str):
+    """(header dict, header length) of an open safetensors file."""
+    raw = f.read(8)
+    if len(raw) < 8:
+        raise ValueError(f"{path} is not a safetensors file (shorter than 8 bytes)")
+    (n,) = struct.unpack("<Q", raw)
+    try:
+        header = json.loads(f.read(n))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path} is not a safetensors file (bad header: {e})") from e
+    if not isinstance(header, dict):
+        raise ValueError(f"{path} is not a safetensors file (header is not an object)")
+    return header, n
+
+
+def read_shapes(path: str) -> Dict[str, list]:
+    """{name: shape} of every tensor of the file, from its header alone (no
+    tensor data is read)."""
+    with open(path, "rb") as f:
+        header, _ = _read_header(f, path)
+    return {name: [int(s) for s in info["shape"]] for name, info in header.items()
+            if name != "__metadata__"}
+
+
 def load_file(path: str) -> Dict[str, torch.Tensor]:
     """Every tensor of the file, as CPU tensors viewing a copy-on-write map."""
     with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
+        header, n = _read_header(f, path)
         size = f.seek(0, 2)
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY) if size else None
     start = 8 + n

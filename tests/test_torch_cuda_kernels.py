@@ -259,6 +259,26 @@ def test_group_norm_cluster_path_at_census_widths(cuda, shape):
     assert torch.equal(got[-1:], solo)
 
 
+def test_group_norm_at_2e31_values(cuda):
+    """bf16 [8, 1024, 1024, 256]: 2^31 values, the VAE decode of a run_jobs of
+    8 SDXL requests. Each batch row against the plain fp32 version of that
+    row alone, and byte-equal to the kernel's batch-1 output of that row."""
+    shape = (8, 1024, 1024, 256)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+    for i in range(shape[0]):
+        x[i] = torch.randn(shape[1:], generator=g, device=cuda).to(torch.bfloat16)
+    scale, bias = _gn_params(256, torch.bfloat16, cuda)
+    got = gn.fused_group_norm_silu(x, scale, bias, groups=32)
+    for i in range(shape[0]):
+        row = x[i:i + 1]
+        want = gn.group_norm_plain(row.float(), scale.float(), bias.float(), groups=32,
+                                   silu=True)
+        _assert_close(got[i:i + 1], want, None, TOL_BF16)
+        del want
+        assert torch.equal(got[i:i + 1], gn.fused_group_norm_silu(row, scale, bias, groups=32))
+
+
 def test_group_norm_coeffs_match_plain(cuda):
     x = _randn((2, 32, 32, 640), torch.float32, cuda, 6) + 3.0
     scale = torch.ones(640, device=cuda)

@@ -327,9 +327,14 @@ def test_load_scheduler_config_matches_jax(tmp_path):
 
 def test_load_pipeline_refuses_a_single_file_and_needs_cuda_unless_cpu(tiny_sdxl, tmp_path,
                                                                       monkeypatch):
+    """A single file goes to the single-file loader, which refuses what is
+    not a safetensors file or not a diffusion checkpoint."""
     path = tmp_path / "model.safetensors"
     path.write_bytes(b"")
-    with pytest.raises(ValueError, match="single"):
+    with pytest.raises(ValueError, match="not a safetensors file"):
+        loader.load_pipeline(str(path), device="cpu")
+    st.save_file({"unrelated.weight": torch.zeros(2)}, str(path))
+    with pytest.raises(ValueError, match="not a diffusion checkpoint"):
         loader.load_pipeline(str(path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

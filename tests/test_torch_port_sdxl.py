@@ -29,12 +29,17 @@ from dreamlab_tpu.pipeline import LCMPipeline as JaxPipeline
 from dreamlab_tpu_torch import convert, loader, testing
 from dreamlab_tpu_torch.engine.base import GenSpec
 from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
-from dreamlab_tpu_torch.engine.worker_factory import create_cuda_worker, detect_worker_type
+from dreamlab_tpu_torch.engine.worker_factory import (
+    WorkerCreationError,
+    create_cuda_worker,
+    detect_worker_type,
+)
 from dreamlab_tpu_torch.models import clip_text as tclip
 from dreamlab_tpu_torch.models import configs as tcfg
 from dreamlab_tpu_torch.models import layers as tlayers
 from dreamlab_tpu_torch.models import unet as tunet
 from dreamlab_tpu_torch.pipeline import LCMPipeline
+from dreamlab_tpu_torch.utils.safetensors import save_file
 from tests.test_loader import make_tiny_checkpoint
 from tests.test_torch_port_models import _np_tree, _shapes
 
@@ -241,13 +246,16 @@ def test_create_cuda_worker_serves_the_in_memory_bundle(tmp_path):
 
 
 def test_create_cuda_worker_refuses_what_later_slices_bring(sdxl_dir, tmp_path, monkeypatch):
-    path = tmp_path / "model.safetensors"
-    path.write_bytes(b"\0" * 16)
-    with pytest.raises(ValueError, match="single"):
-        create_cuda_worker(0, str(path), device="cpu")
+    """A LoRA or a ControlNet cannot serve alone (WorkerCreationError, as in
+    the reference); mode LoRAs, embeddings, attached ControlNets and the
+    refiner come with later slices (ValueError)."""
+    path = str(tmp_path / "style.safetensors")
+    save_file({"lora_unet_down_blocks_0_attn1_to_q.lora_down.weight": torch.zeros(4, 8)}, path)
+    with pytest.raises(WorkerCreationError, match="LoRA"):
+        create_cuda_worker(0, path, device="cpu")
     (tmp_path / "controlnet").mkdir()
-    (tmp_path / "controlnet" / "config.json").write_text("{}")
-    with pytest.raises(ValueError, match="ControlNet"):
+    (tmp_path / "controlnet" / "config.json").write_text('{"_class_name": "ControlNetModel"}')
+    with pytest.raises(WorkerCreationError, match="ControlNet"):
         create_cuda_worker(0, str(tmp_path / "controlnet"), device="cpu")
     for kw in (dict(loras=["x.safetensors"]), dict(embeddings=["e"]),
                dict(controlnet="cn"), dict(refiner="r")):
