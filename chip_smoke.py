@@ -38,8 +38,24 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    directory, builds a worker from each with ``create_cuda_worker`` (load
    seconds printed; the single file with ``warmup_size=(512, 512)``), and
    checks that one ``run_job``'s PNG is byte-identical to that of a pipeline
-   built in memory from the same fp16 values, for both;
-7. SDXL phase: SDXL at full width (two text towers, ``text_time``
+   built in memory from the same fp16 values, for both; then a worker from
+   the directory with a mode LoRA and a two-vector textual inversion (the
+   trigger word and the mode LoRA each change the PNG);
+7. SD1.5 extras: a new full-width worker with two styles (rank-8 LoRAs over
+   every projection the key map reaches, kohya and diffusers dialect).
+   Styles path (counts reset before it): unstyled, A at level 3 (its first
+   merge timed alone), A again (a cache hit), B, unstyled; the two unstyled
+   PNGs and A's two are byte-identical, the styled graph PNG equals the
+   eager route's, the merged leaves are within one bf16 ulp of a CPU fp32
+   merge; merge, cache-hit and restore ms, touched and registered bytes, a
+   profiled styled replay (the census). img2img path (counts reset): the
+   encoder's GroupNorm shapes checked and timed, img2img at 0.5 and
+   inpainting at 1.0 with a half-frame mask through ``run_img2img`` (graph =
+   eager, the same seed twice, the 0.5 bucket replayed at 0.75 = eager at
+   0.75, inpainting keeps the encoded latents outside the mask), p50 over
+   10 requests, a profiled replay (txt2img's flash census, its GroupNorm
+   census plus the encoder's);
+8. SDXL phase: SDXL at full width (two text towers, ``text_time``
    micro-conditioning), seeded random bf16 weights drawn on the card, 1024x1024,
    4 steps. A census of one request on the eager route (280 flash, 169
    GroupNorm launches), each kernel held against its plain version and timed
@@ -52,9 +68,14 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    batch-doubled ``cfg`` mode), ``run_jobs`` of 2 in each mode whose rows must
    equal their solo runs byte for byte, each bucket captured on its first
    request; one profiled replay; the eager route on the same requests (timed,
-   profiled, PNGs against the graph's); the peak memory; one
-   ``{"sdxl": {...}}`` line;
-8. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
+   profiled, PNGs against the graph's); the peak memory; one SDXL img2img
+   request at 1024² (the encoder's shapes checked and timed, a replay, the
+   peak memory); SDXL at 1344x768, whose latents (96 x 168) decode as 8
+   tiles (census 280 flash at N = 4032 and 1008, 140 + 8 x 29 GroupNorm; the
+   new shapes checked, K1's timed; three replays and the eager route
+   byte-identical; the tiled decode's ms and peak memory beside the
+   full-frame decode's); one ``{"sdxl": {...}}`` line;
+9. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
    ``kernel_call`` at lanes 40 and 128, K6 ``flash_attention_packed3``) in
    fp32 against their plain versions at the probes' full shapes, then runs
    the three probe entry points of ``dreamlab_tpu_torch/scripts`` with their
@@ -63,9 +84,11 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    rounding of the output), then times them beside the plain
    version and SDPA; the phase reads their errors and times, adds each
    kernel's bound, and prints one ``{"probes": {...}}`` line;
-9. prints the ``{"kernels": [...]}`` line (each kernel on the SD1.5 main path,
-   then on the SDXL path with a ``_sdxl`` name, then the probes' kernels), and
-   last ``{"ok": true, "device": {...}}``.
+10. prints the run's seconds (``{"total_s": ...}``), the ``{"kernels": [...]}``
+   line (each kernel on the SD1.5 main path, then on the SDXL path with a
+   ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
+   ``_encoder_sdxl``), K1 at 1344x768, then the probes' kernels), and last
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -83,16 +106,19 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dreamlab_tpu_torch import lora
 from dreamlab_tpu_torch.engine.base import GenSpec
 from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
+from dreamlab_tpu_torch.engine.model_registry import get_model_registry, reset_model_registry
 from dreamlab_tpu_torch.engine.worker_factory import create_cuda_worker
-from dreamlab_tpu_torch.models import layers
+from dreamlab_tpu_torch.models import layers, vae
 from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
@@ -101,9 +127,10 @@ from dreamlab_tpu_torch.pipeline import LCMPipeline
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
 from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
                                                max_err)
-from dreamlab_tpu_torch.testing import (cast_params, random_bundle, write_diffusers_dir,
-                                        write_single_file)
+from dreamlab_tpu_torch.testing import (cast_params, random_bundle, random_lora,
+                                        write_diffusers_dir, write_single_file)
 from dreamlab_tpu_torch.utils.png import encode_png
+from dreamlab_tpu_torch.utils.safetensors import save_file
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # operations over the peak for the inputs' type and bytes over HBM bandwidth
@@ -127,6 +154,9 @@ EAGER_SAMPLES = 10  # the same requests on the eager route (the before)
 XL_SIZE = 1024
 XL_LATENCY_SAMPLES = 5  # SDXL batch-1 requests timed (p50, min, max over them)
 XL_EAGER_SAMPLES = 3
+STYLE_RANK = 8  # the styles' and the mode LoRA's rank
+STYLE_TIMING_REPS = 5  # cache-hit applies and restores timed (median)
+IMG2IMG_SAMPLES = 10  # SD1.5 img2img and inpainting requests timed, each (p50 over them)
 # a bucket's capture follows one eager run: each launches every kernel once
 # per call, so capturing a bucket counts twice its census
 CAPTURE_RUNS = 2
@@ -354,9 +384,10 @@ def check_small_pipeline() -> None:
 # ---------------------------------------------------------------------------
 
 
-def census(pipe, size: int = SIZE) -> collections.Counter:
-    """Shapes each kernel wrapper sees in one batch-1 request at ``size``²
-    (the eager route: a capture would run the wrappers twice)."""
+def census(pipe, size: int = SIZE, run=None) -> collections.Counter:
+    """Shapes each kernel wrapper sees in one batch-1 request at ``size``²,
+    or in ``run()`` where given (the eager route: a capture would run the
+    wrappers twice)."""
     seen = collections.Counter()
     flash, gnorm = attention.flash_attention, layers.fused_group_norm_silu
 
@@ -370,15 +401,19 @@ def census(pipe, size: int = SIZE) -> collections.Counter:
 
     attention.flash_attention, layers.fused_group_norm_silu = rec_flash, rec_gn
     try:
-        pipe._generate_eager("census", height=size, width=size, num_inference_steps=STEPS,
-                             seed=0)
+        if run is None:
+            pipe._generate_eager("census", height=size, width=size,
+                                 num_inference_steps=STEPS, seed=0)
+        else:
+            run()
     finally:
         attention.flash_attention, layers.fused_group_norm_silu = flash, gnorm
     return seen
 
 
 def time_kernels(seen, dtype, errs) -> dict:
-    """Each census shape: the kernel against its plain version, then timed."""
+    """Each census shape: the kernel against its plain version, then timed
+    (per-request totals: each shape's time times its count in ``seen``)."""
     rows = {k: collections.defaultdict(float) for k in ("flash", "gn_stats", "gn_apply", "gn")}
     for (kind, shape, extra), count in sorted(seen.items()):
         if kind == "flash":
@@ -721,6 +756,12 @@ def loader_phase(per_request) -> dict:
     with tempfile.TemporaryDirectory(prefix="dreamlab_ckpt_") as root:
         paths = {"directory": os.path.join(root, "sd15"),
                  "single_file": os.path.join(root, "sd15.safetensors")}
+        mode_lora = os.path.join(root, "mode_lora.safetensors")
+        save_file(random_lora(bundle.unet_params, rank=STYLE_RANK, seed=300,
+                              dtype=torch.float16), mode_lora)
+        embedding = os.path.join(root, "lumen.safetensors")
+        width = bundle.text_params["token_embedding"]["w"].shape[1]
+        save_file({"emb_params": 0.02 * randn((2, width), torch.float16, 301)}, embedding)
         t0 = time.perf_counter()
         write_diffusers_dir(bundle, paths["directory"])
         write_s = {"directory": time.perf_counter() - t0}
@@ -757,11 +798,292 @@ def loader_phase(per_request) -> dict:
             out[name] = {"checkpoint_bytes": nbytes[name], "write_s": write_s[name],
                          "load_s": load_s, "warmup_size": warmup,
                          "png_identical": png == png_memory, "launches": launched}
+        out["mode_lora_and_embedding"] = mode_extras(paths["directory"], mode_lora, embedding,
+                                                     spec, png_memory)
     return out
 
 
+def mode_extras(ckpt, mode_lora, embedding, spec, png_plain) -> dict:
+    """``create_cuda_worker`` with a mode LoRA and a two-vector textual
+    inversion: the trigger word changes the image, and the mode LoRA changes
+    it from the plain checkpoint's."""
+    t0 = time.perf_counter()
+    worker = create_cuda_worker(
+        0, ckpt, loras=[types.SimpleNamespace(file=mode_lora, strength=0.8)],
+        embeddings=[types.SimpleNamespace(file=embedding, name=None)])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bundle = worker.pipeline.bundle
+    vocab = bundle.text_cfg.vocab_size
+    triggers = bundle.tokenizer.triggers
+    expect(triggers == {"lumen": [vocab, vocab + 1]}, f"embedding triggers {triggers}")
+    plain = worker.run_job(spec)[0]
+    lumen = worker.run_job(dataclasses.replace(spec, prompt="a lumen mountain at sunset"))[0]
+    check_png(plain)
+    check_png(lumen)
+    expect(lumen != plain, "the trigger word changed nothing")
+    expect(plain != png_plain, "the mode LoRA changed nothing")
+    del worker
+    torch.cuda.empty_cache()
+    return {"load_s": load_s, "triggers": triggers, "trigger_changes_png": lumen != plain,
+            "mode_lora_changes_png": plain != png_plain}
+
+
 # ---------------------------------------------------------------------------
-# phase 7: SDXL at 1024x1024
+# phase 7: styles, img2img and inpainting at SD1.5's 512x512
+# ---------------------------------------------------------------------------
+
+
+def timed_ms(fn) -> float:
+    """Host ms of ``fn`` between two device syncs (work that ends on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def test_image(height: int, width: int, seed: int) -> np.ndarray:
+    """A seeded uint8 picture: smooth colour gradients under a little noise."""
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    img = np.stack([x / width, y / height, 0.5 + 0.5 * np.sin(x / 37.0 + y / 53.0)], -1)
+    return np.clip(255 * img + rs.randn(height, width, 3) * 8, 0, 255).astype(np.uint8)
+
+
+def half_mask(height: int, width: int) -> np.ndarray:
+    mask = np.zeros((height, width), np.uint8)
+    mask[:, width // 2:] = 255  # regenerate the right half
+    return mask
+
+
+def check_merged_leaves(worker, sdef, level) -> dict:
+    """The merged leaves on the card (the cache's values) against a CPU fp32
+    merge of the same base and adapter tensors, rounded to bf16: at most one
+    bf16 ulp apart."""
+    scale = sdef.strength_for_level(level)
+    values = worker._merged_cache[(sdef.path, scale)][1]
+    modules = worker._style_cache[sdef.path].unet
+    worst, n_ulp1 = 0.0, 0
+    for path, got in values.items():
+        down, up, alpha = modules[path]
+        want = (worker._base[path].float().cpu() + scale * (alpha / down.shape[0])
+                * (up.float().cpu() @ down.float().cpu())).to(torch.bfloat16)
+        _, exp = torch.frexp(want.float())
+        ulps = (got.float().cpu() - want.float()).abs() / torch.pow(2.0, (exp - 8).float())
+        worst = max(worst, ulps.max().item())
+        n_ulp1 += int((ulps > 0).sum())
+    expect(worst <= 1.0, f"merged leaves {worst} bf16 ulps off the CPU fp32 merge")
+    return {"leaves": len(values), "max_ulps": worst, "values_one_ulp_off": n_ulp1}
+
+
+def styles_path(worker, styles, per_request) -> dict:
+    """Unstyled, style A at level 3 (its first merge, timed alone), A again
+    (a cache hit), B, unstyled again, all replays of one captured bucket."""
+    pipe = worker.pipeline
+    spec = lambda style=None, level=0: GenSpec(
+        "a lighthouse in a storm", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS, seed=31,
+        style=style, style_level=level)
+    png = lambda sp: worker.run_job_with_latents(sp)[0]  # no metadata: comparable bytes
+    t0 = time.perf_counter()
+    reset_counts()
+    plain = png(spec())  # captures the bucket
+    read_ms = timed_ms(lambda: lora.load_lora(styles["A"].path))
+    with worker._lock:
+        first_ms = timed_ms(lambda: worker._apply_style("A", 3))  # reads the file, merges
+        first_restore_ms = timed_ms(lambda: worker._apply_style(None, 0))
+    a1 = png(spec("A", 3))
+    hit_ms, restore_ms = [], []
+    with worker._lock:
+        for _ in range(STYLE_TIMING_REPS):
+            hit_ms.append(timed_ms(lambda: worker._apply_style("A", 3)))
+            restore_ms.append(timed_ms(lambda: worker._apply_style(None, 0)))
+    a2 = png(spec("A", 3))
+    b = png(spec("B", 3))
+    plain2 = png(spec())
+    launched = counts()
+    expect(launched == {k: CAPTURE_RUNS * v for k, v in per_request.items()},
+           f"the styles path launched {launched}, expected one bucket's capture "
+           f"{CAPTURE_RUNS} x {per_request} (styled replays go through no wrapper)")
+    expect(plain2 == plain, "unstyled PNG bytes changed after a styled request")
+    expect(a1 != plain and b != plain and b != a1, "a style changed nothing")
+    expect(a2 == a1, "style A twice gave other bytes")
+    with worker._lock:
+        worker._apply_style("A", 3)
+        try:
+            eager = eager_png(pipe, spec("A", 3))
+        finally:
+            worker._apply_style(None, 0)
+    expect(eager == a1, "the styled graph PNG differs from the eager route's")
+    merged = check_merged_leaves(worker, styles["A"], 3)
+    prof = profile(lambda: png(spec("A", 3)))
+    census_kernels = {"flash_mma_kernel": per_request["flash"],
+                      "gn_cluster_kernel": per_request["gn"]}
+    expect({k: prof["port_kernels"].get(k, 0) for k in census_kernels} == census_kernels,
+           f"a styled replay ran {prof['port_kernels']}, expected {census_kernels}")
+    registry = get_model_registry()
+    entries = {m.name: m.hbm_bytes for m in registry.list_models()}
+    touched = sum(t.numel() * t.element_size() for t in worker._base.values())
+    unet = sum(t.numel() * t.element_size() for t in leaves(pipe.unet_params))
+    expect(entries.get(next((n for n in entries if n.startswith("lora-base:")), ""))
+           == touched, f"registry entries {entries} miss the base copies' {touched} bytes")
+    return {"launches": launched, "first_merge_ms": first_ms, "lora_file_read_ms": read_ms,
+            "first_restore_ms": first_restore_ms,
+            "cache_hit_ms": statistics.median(hit_ms), "cache_hit_ms_all": hit_ms,
+            "restore_ms": statistics.median(restore_ms), "restore_ms_all": restore_ms,
+            "touched_leaves": len(worker._base), "touched_leaf_bytes": touched,
+            "unet_bytes": unet, "registry_bytes": entries,
+            "registry_lora_bytes": sum(v for n, v in entries.items() if n.startswith("lora")),
+            "merged_vs_cpu_fp32": merged, "styled_equals_eager": eager == a1,
+            "replay_port_kernels": prof["port_kernels"],
+            "replay_kernel_ms": prof["device_busy_ms"], "path_s": time.perf_counter() - t0}
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def encoder_gn_calls(cfg) -> int:
+    """GroupNorm+SiLU calls of one VAE encode: two per resnet (layers_per_block
+    per level, two in the mid block) and norm_out."""
+    return 2 * (len(cfg.block_out_channels) * cfg.layers_per_block + 2) + 1
+
+
+def img2img_path(worker, per_request, txt_seen, errs) -> tuple:
+    """img2img at strength 0.5 and inpainting at 1.0 with a half-frame mask
+    through ``run_img2img``, each bucket captured on its first request; the
+    graph against the eager route, the same seed twice, the 0.5 graph
+    replayed at 0.75 against eager at 0.75, the known latents outside the
+    mask; p50 over IMG2IMG_SAMPLES requests of each task and a profiled
+    img2img replay. Returns
+    (the encoder's per-request kernel rows, launches, the line)."""
+    pipe = worker.pipeline
+    image, mask = test_image(SIZE, SIZE, 40), half_mask(SIZE, SIZE)
+    spec = GenSpec("a lighthouse at dawn", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
+                   seed=41)
+    call = dict(num_inference_steps=STEPS, seed=41)
+    seen = census(pipe, run=lambda: pipe._img2img_eager(spec.prompt, image, strength=0.5,
+                                                        **call))
+    encoder = seen - txt_seen  # the encoder's calls (the rest is txt2img's census)
+    n_enc = encoder_gn_calls(pipe.bundle.vae_cfg)
+    i2i_request = {"flash": per_request["flash"], "gn": per_request["gn"] + n_enc,
+                   "gn_stats": per_request["gn"] + n_enc, "gn_apply": per_request["gn"] + n_enc}
+    expect(sum(c for k, c in encoder.items() if k[0] == "gn") == n_enc
+           and not any(k[0] == "flash" for k in encoder),
+           f"img2img census adds {dict(encoder)}, expected {n_enc} GroupNorm calls")
+    log({"img2img_census_encoder": [[list(k[1]), k[2], n] for k, n in sorted(encoder.items())]})
+    t0 = time.perf_counter()
+    rows = time_kernels(encoder, torch.bfloat16, errs)
+    timing_s = time.perf_counter() - t0
+    end_phase("img2img census")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    i2i = worker.run_img2img(spec, image, strength=0.5)[0]
+    inp = worker.run_img2img(spec, image, strength=1.0, mask=mask)[0]
+    launched = counts()
+    expect(launched == {k: 2 * CAPTURE_RUNS * v for k, v in i2i_request.items()},
+           f"the img2img path launched {launched}, expected two buckets' captures "
+           f"{2 * CAPTURE_RUNS} x {i2i_request}")
+    check_png(i2i)
+    check_png(inp)
+    expect(worker.run_img2img(spec, image, strength=0.5)[0] == i2i,
+           "img2img: the same seed gave other bytes")
+    buckets = len(pipe._compiled)
+    at75 = worker.run_img2img(spec, image, strength=0.75)[0]
+    expect(len(pipe._compiled) == buckets and at75 != i2i,
+           "strength 0.75 made a bucket of its own or changed nothing")
+    res = pipe.inpaint(spec.prompt, image, mask, **call)
+    def latencies(**kw) -> list:
+        out = []
+        for i in range(IMG2IMG_SAMPLES):
+            t1 = time.perf_counter()
+            worker.run_img2img(dataclasses.replace(spec, seed=500 + i), image, **kw)
+            out.append(1e3 * (time.perf_counter() - t1))
+        return out
+
+    latency = latencies(strength=0.5)
+    inpaint_latency = latencies(strength=1.0, mask=mask)
+    prof = profile(lambda: worker.run_img2img(spec, image, strength=0.5))
+    want_kernels = {"flash_mma_kernel": i2i_request["flash"],
+                    "gn_cluster_kernel": i2i_request["gn"]}
+    expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
+           f"a profiled img2img replay ran {prof['port_kernels']}, expected {want_kernels}")
+    expect(counts() == launched, f"img2img replays went through the wrappers: {counts()}")
+    # the eager route (the before), which goes through the wrappers
+    eager = pipe._img2img_eager(spec.prompt, image, strength=0.5, **call)
+    expect(np.array_equal(png_pixels(i2i), eager.images[0]), "img2img graph != eager")
+    eager_inp = pipe._img2img_eager(spec.prompt, image, mask=mask, strength=1.0, **call)
+    expect(np.array_equal(png_pixels(inp), eager_inp.images[0]), "inpaint graph != eager")
+    eager75 = pipe._img2img_eager(spec.prompt, image, strength=0.75, **call)
+    expect(np.array_equal(png_pixels(at75), eager75.images[0]),
+           "img2img: the 0.5 bucket replayed at 0.75 differs from eager at 0.75")
+    # inpainting keeps the encoded image outside the mask
+    staged = pipe._stage_img2img(spec.prompt, image, mask=mask, strength=1.0, **call)
+    with torch.inference_mode():
+        x0 = pipe._encode_x0(torch.from_numpy(staged.inputs["image"]).cuda(),
+                             torch.from_numpy(staged.inputs["eps_post"]).cuda()).cpu().numpy()
+    keep = staged.inputs["mask_lat"][0, :, :, 0] == 0
+    known_err = float(np.abs(res.latents[0][keep] - x0[0][keep]).max())
+    expect(known_err == 0.0, f"inpaint moved the known latents by {known_err}")
+    expect(float(np.abs(res.latents[0][~keep] - x0[0][~keep]).max()) > 0,
+           "inpaint left the masked latents as encoded")
+    line = {"launches": launched, "per_request": i2i_request, "encoder_gn_calls": n_enc,
+            "p50_ms": statistics.median(latency), "min_ms": min(latency),
+            "max_ms": max(latency), "latency_ms": latency,
+            "inpaint_p50_ms": statistics.median(inpaint_latency),
+            "inpaint_latency_ms": inpaint_latency,
+            "buckets": [b for b in bucket_stats(pipe) if b["key"][-1] != "txt2img"],
+            "profile_replay": prof, "known_latents_max_err": known_err,
+            "encoder_per_request_ms": rows["gn"], "timing_s": timing_s,
+            "path_s": time.perf_counter() - t0}
+    return rows, launched, line
+
+
+def sd15_extras_phase(per_request, txt_seen) -> tuple:
+    """Phase 7. A new SD1.5 worker (full width, seeded random bf16 weights,
+    its VAE encoder included) with two styles (rank-8 LoRAs over every
+    projection the key map reaches, kohya and diffusers dialect, fp16
+    files), then the styles path and the img2img path, each with its counts
+    reset before it. Returns (encoder rows, img2img launches, errs, line)."""
+    t0 = time.perf_counter()
+    reset_model_registry()
+    pipe = LCMPipeline(random_bundle(seed=0, device="cuda"), dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    errs = collections.defaultdict(float)
+    with tempfile.TemporaryDirectory(prefix="dreamlab_styles_") as root:
+        styles = {}
+        for name, dialect, seed in (("A", "kohya", 100), ("B", "diffusers", 200)):
+            path = os.path.join(root, f"style_{name}.safetensors")
+            save_file(random_lora(pipe.unet_params, rank=STYLE_RANK, dialect=dialect, seed=seed,
+                                  dtype=torch.float16), path)
+            styles[name] = lora.StyleDef(name=name, path=path)
+        worker = CudaPipelineWorker(pipe, styles=styles)
+        setup_s = time.perf_counter() - t0
+        styled = styles_path(worker, styles, per_request)
+        log({"styles": styled})
+        end_phase("styles")
+        rows, launched, i2i = img2img_path(worker, per_request, txt_seen, errs)
+        log({"img2img": i2i})
+        end_phase("img2img")
+    worker.close()
+    del pipe
+    freed = delete_pipeline(worker)
+    reset_model_registry()
+    line = {"sd15_extras": {"card": smi_line(), "setup_s": setup_s, "freed_bytes": freed,
+                            "phase_s": time.perf_counter() - t0}}
+    return rows, launched, errs, line
+
+
+# ---------------------------------------------------------------------------
+# phase 8: SDXL at 1024x1024, img2img there, and 1344x768 (tiled decode)
 # ---------------------------------------------------------------------------
 
 
@@ -822,8 +1144,171 @@ def check_sdxl_extremes(errs) -> dict:
                                   "peak_extra_bytes": extra}}
 
 
+def sdxl_style(worker, spec) -> dict:
+    """One styled SDXL request at 1024² (a rank-8 LoRA over every projection
+    the key map reaches, kohya dialect) replaying the ``none`` bucket: other
+    bytes than unstyled, and the unstyled bytes unchanged after it."""
+    pipe = worker.pipeline
+    with tempfile.TemporaryDirectory(prefix="dreamlab_xl_style_") as root:
+        path = os.path.join(root, "xl_style.safetensors")
+        save_file(random_lora(pipe.unet_params, rank=STYLE_RANK, seed=400,
+                              dtype=torch.float16), path)
+        worker.styles["xl"] = lora.StyleDef(name="xl", path=path)
+        png = lambda sp: worker.run_job_with_latents(sp)[0]
+        plain = png(spec)
+        reset_counts()
+        with worker._lock:
+            first_ms = timed_ms(lambda: worker._apply_style("xl", 3))
+            restore_ms = timed_ms(lambda: worker._apply_style(None, 0))
+        styled = png(dataclasses.replace(spec, style="xl", style_level=3))
+        launched = counts()
+        after = png(spec)
+    expect(styled != plain and after == plain,
+           "SDXL style: changed nothing, or the unstyled bytes moved after it")
+    expect(not any(launched.values()), f"a styled SDXL replay went through the wrappers: "
+                                        f"{launched}")
+    out = {"first_merge_ms": first_ms, "restore_ms": restore_ms,
+           "touched_leaves": len(worker._base),
+           "touched_leaf_bytes": sum(t.numel() * t.element_size()
+                                     for t in worker._base.values()),
+           "styled_differs": styled != plain, "unstyled_unchanged": after == plain}
+    worker._merged_clear()  # free the base copies and the cache before the next paths
+    worker._base.clear()
+    return out
+
+
+def sdxl_img2img(worker, txt_seen) -> tuple:
+    """One SDXL img2img request at 1024², ``none`` mode, strength 0.5: the
+    encoder's GroupNorm calls checked and timed at their shapes, the bucket
+    captured on the first request, a replay of the same seed (identical
+    bytes), and the peak memory. Returns (the encoder's rows, launches, errs,
+    the line)."""
+    pipe = worker.pipeline
+    errs = collections.defaultdict(float)
+    image = test_image(XL_SIZE, XL_SIZE, 60)
+    spec = GenSpec("a castle on a hill at dawn", size=f"{XL_SIZE}x{XL_SIZE}",
+                   num_inference_steps=STEPS, seed=61)
+    seen = census(pipe, run=lambda: pipe._img2img_eager(spec.prompt, image, strength=0.5,
+                                                        num_inference_steps=STEPS, seed=61))
+    encoder = seen - txt_seen
+    n_enc = encoder_gn_calls(pipe.bundle.vae_cfg)
+    expect(sum(c for k, c in encoder.items() if k[0] == "gn") == n_enc
+           and not any(k[0] == "flash" for k in encoder),
+           f"SDXL img2img census adds {dict(encoder)}, expected {n_enc} GroupNorm calls")
+    rows = time_kernels(encoder, torch.bfloat16, errs)
+    end_phase("sdxl img2img census")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = worker.run_img2img(spec, image, strength=0.5)[0]
+    first_s = time.perf_counter() - t0
+    launched = counts()
+    per_request = {"flash": XL_PER_REQUEST["flash"], "gn": XL_PER_REQUEST["gn"] + n_enc}
+    want = {"flash": CAPTURE_RUNS * per_request["flash"],
+            "gn": CAPTURE_RUNS * per_request["gn"],
+            "gn_stats": CAPTURE_RUNS * per_request["gn"],
+            "gn_apply": CAPTURE_RUNS * per_request["gn"]}
+    expect(launched == want, f"the SDXL img2img path launched {launched}, expected {want}")
+    t0 = time.perf_counter()
+    again = worker.run_img2img(spec, image, strength=0.5)[0]
+    replay_ms = 1e3 * (time.perf_counter() - t0)
+    check_png(first, XL_SIZE)
+    expect(again == first, "SDXL img2img: the same seed gave other bytes")
+    line = {"launches": launched, "per_request": per_request, "first_request_s": first_s,
+            "replay_ms": replay_ms, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "encoder_per_request_ms": rows["gn"],
+            "bucket": [b for b in bucket_stats(pipe) if b["key"][-1] == "img2img"]}
+    return rows, launched, errs, line
+
+
+def sdxl_tiles(worker, txt_seen) -> tuple:
+    """SDXL at 1344x768 (latents 96 x 168, above the 160 chunk): a census (K1
+    at N = 4032 and 1008; 8 decoder tiles of 29 GroupNorm calls), every
+    shape new to the card checked against its plain version and K1's timed,
+    three requests after the capture (graph = eager, byte for byte), and the
+    tiled decode's time and peak memory beside the full-frame decode of the
+    same latents. Returns (K1's rows, launches, errs, the line)."""
+    pipe = worker.pipeline
+    errs = collections.defaultdict(float)
+    width, height = 1344, 768
+    h_lat, w_lat = height // pipe.vae_scale, width // pipe.vae_scale
+    tile = pipe._vae_tile
+    n_tiles = (len(vae._tile_starts(h_lat, tile, tile - tile // 4))
+               * len(vae._tile_starts(w_lat, tile, tile - tile // 4)))
+    spec = GenSpec("a harbour at dusk", size=f"{width}x{height}", num_inference_steps=STEPS,
+                   seed=71)
+    seen = census(pipe, run=lambda: pipe._generate_eager(
+        spec.prompt, height=height, width=width, num_inference_steps=STEPS, seed=71))
+    per_request = {"flash": sum(c for k, c in seen.items() if k[0] == "flash"),
+                   "gn": sum(c for k, c in seen.items() if k[0] == "gn")}
+    want = {"flash": XL_PER_REQUEST["flash"], "gn": 4 * 35 + n_tiles * 29}
+    expect(max(h_lat, w_lat) > pipe._vae_chunk and n_tiles == 8 and per_request == want,
+           f"1344x768 census {per_request} over {n_tiles} tiles, expected {want} over 8")
+    new = collections.Counter({k: c for k, c in seen.items() if k not in txt_seen})
+    log({"tiles_census": [[list(k[1]), k[2], n] for k, n in sorted(seen.items())],
+         "new_shapes": len(new)})
+    flash_new = collections.Counter({k: c for k, c in new.items() if k[0] == "flash"})
+    rows = time_kernels(flash_new, torch.bfloat16, errs)
+    for (kind, shape, groups), _ in sorted(new.items()):
+        if kind == "gn":
+            x = randn(shape, torch.bfloat16, 72)
+            gamma = (1 + 0.1 * randn((shape[-1],), torch.float32, 73)).to(torch.bfloat16)
+            beta = (0.1 * randn((shape[-1],), torch.float32, 74)).to(torch.bfloat16)
+            check_gn(x, gamma, beta, groups, True, errs, f"1344x768 {list(shape)}")
+    end_phase("1344x768 census")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pipe.generate(spec.prompt, height=height, width=width, num_inference_steps=STEPS,
+                        seed=71)
+    first_s = time.perf_counter() - t0
+    launched = counts()
+    expect(launched["flash"] == CAPTURE_RUNS * want["flash"]
+           and launched["gn"] == CAPTURE_RUNS * want["gn"],
+           f"the 1344x768 path launched {launched}, expected {CAPTURE_RUNS} x {want}")
+    pngs, latency = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        pngs.append(worker.run_job_with_latents(spec)[0])
+        latency.append(1e3 * (time.perf_counter() - t1))
+    eager = eager_png(pipe, spec)
+    expect(all(p == pngs[0] for p in pngs) and eager == pngs[0],
+           "1344x768: the replays or the eager route gave other bytes")
+    expect(png_pixels(pngs[0]).shape == (height, width, 3), "1344x768 PNG shape")
+    prof = profile(lambda: worker.run_job_with_latents(spec))
+    want_kernels = {"flash_mma_kernel": want["flash"], "gn_cluster_kernel": want["gn"]}
+    expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
+           f"a profiled 1344x768 replay ran {prof['port_kernels']}, expected {want_kernels}")
+    z = torch.from_numpy(res.latents).cuda() / pipe.bundle.vae_cfg.scaling_factor
+    decodes = {}
+    for name, fn in (("tiled", lambda: pipe._decode(z)),
+                     ("full_frame", lambda: vae.decode(pipe.vae_params, pipe.bundle.vae_cfg, z))):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = timed_ms(fn)
+            decodes[name] = {"ms": ms, "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+            img = torch.round(torch.clamp(fn() * 0.5 + 0.5, 0, 1) * 255).to(torch.uint8)
+            decodes[name]["image"] = img.cpu().numpy()
+    delta = np.abs(decodes["tiled"].pop("image").astype(np.int16)
+                   - decodes["full_frame"].pop("image").astype(np.int16))
+    expect(np.array_equal(png_pixels(pngs[0]), res.images[0]), "1344x768 generate != run_job")
+    line = {"launches": launched, "per_request": want, "tiles": n_tiles,
+            "first_request_s": first_s, "p50_ms": statistics.median(latency),
+            "latency_ms": latency, "profile_replay": prof, "decode": decodes,
+            "tiled_vs_full_frame": {"max_pixel_delta": int(delta.max()),
+                                    "pixels_moved": float((delta > 0).mean())},
+            "bucket": [b for b in bucket_stats(pipe) if b["key"][1:3] == [h_lat, w_lat]],
+            "flash_per_request_ms": rows["flash"]}
+    return rows, launched, errs, line
+
+
 def sdxl_phase(errs) -> tuple:
-    """Phase 7. Returns (per-request kernel rows, launches, the sdxl line)."""
+    """Phase 8. Returns (per-request kernel rows, launches, the sdxl line,
+    and the img2img and 1344x768 paths' (rows, launches, errs))."""
     t0 = time.perf_counter()
     pipe = LCMPipeline(random_bundle("sdxl", seed=0, device="cuda"), dtype=torch.bfloat16)
     torch.cuda.empty_cache()
@@ -931,9 +1416,20 @@ def sdxl_phase(errs) -> tuple:
         "flash_ms_per_request": rows["flash"]["ms"], "gn_ms_per_request": rows["gn"]["ms"],
         "peak_memory_bytes": peak, "requests_s": requests_s,
         "vae_mid_attention": extremes["vae_mid_attention"]}}
+    line["sdxl"]["style"] = sdxl_style(worker, spec(1))
+    end_phase("sdxl style")
+    t0 = time.perf_counter()
+    i2i_rows, i2i_launches, i2i_errs, i2i_line = sdxl_img2img(worker, seen)
+    line["sdxl"]["img2img"] = {**i2i_line, "path_s": time.perf_counter() - t0}
+    end_phase("sdxl img2img")
+    t0 = time.perf_counter()
+    t_rows, t_launches, t_errs, t_line = sdxl_tiles(worker, seen)
+    line["sdxl"]["tiles_1344x768"] = {**t_line, "path_s": time.perf_counter() - t0}
+    end_phase("sdxl 1344x768")
     del pipe
     line["sdxl"]["freed_bytes_on_delete"] = delete_pipeline(worker)
-    return rows, launches, line
+    return (rows, launches, line, (i2i_rows, i2i_launches, i2i_errs),
+            (t_rows, t_launches, t_errs))
 
 
 def delete_pipeline(worker) -> int:
@@ -947,7 +1443,7 @@ def delete_pipeline(worker) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the probes (K4, K5, K6) of dreamlab_tpu_torch/scripts
+# phase 9: the probes (K4, K5, K6) of dreamlab_tpu_torch/scripts
 # ---------------------------------------------------------------------------
 
 K5_LANES = (ab_attention_layout.LANES, ab_attention_layout.D)
@@ -1018,7 +1514,7 @@ def probe_counts() -> dict:
 
 
 def probes(errs) -> tuple:
-    """Phase 8. Returns (kernel entries for the kernels line, probes line)."""
+    """Phase 9. Returns (kernel entries for the kernels line, probes line)."""
     t0 = time.perf_counter()
     check_probes_fp32()
     end_phase("probe checks")
@@ -1125,6 +1621,7 @@ def kernel_entries(rows, launches, errs, suffix="",
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         return 1
@@ -1210,18 +1707,25 @@ def main() -> int:
     end_phase("loader")
     log({"loader": {**loaded, "phase_s": time.perf_counter() - t0, "card": smi}})
 
+    enc_rows, enc_launches, enc_errs, extras_line = sd15_extras_phase(per_request, seen)
+    log(extras_line)
+
     t0 = time.perf_counter()
     xl_errs = collections.defaultdict(float)
-    xl_rows, xl_launches, xl_line = sdxl_phase(xl_errs)
+    xl_rows, xl_launches, xl_line, xl_i2i, xl_tiles = sdxl_phase(xl_errs)
     end_phase("sdxl")
     xl_line["sdxl"]["phase_s"] = time.perf_counter() - t0
     log(xl_line)
 
     probe_entries, probe_line = probes(errs)
     log(probe_line)
+    log({"total_s": time.perf_counter() - start})
 
     kernels = (kernel_entries(rows, result["launches"], errs)
-               + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn")))
+               + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn"))
+               + kernel_entries(enc_rows, enc_launches, enc_errs, "_encoder", ("gn",))
+               + kernel_entries(*xl_i2i, "_encoder_sdxl", ("gn",))
+               + kernel_entries(*xl_tiles, "_sdxl_1344x768", ("flash",)))
     log({"kernels": kernels + probe_entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -2,7 +2,8 @@
 
 ``from_jax_numpy`` takes trees in the schema of the JAX package's
 ``clip_text.init_params`` / ``unet.init_params`` / ``vae.init_decoder_params``
-(as loaded by its ``load_pipeline``), with numpy leaves (``np.asarray`` of
+/ ``vae.init_encoder_params`` (as loaded by its ``load_pipeline``), with
+numpy leaves (``np.asarray`` of
 each JAX array), and returns the same trees as torch tensors in the port's
 layout: conv kernels HWIO -> OIHW, linear kernels ``[in, out]`` ->
 ``[out, in]``, embeddings unchanged. With it both packages compute the same
@@ -37,5 +38,5 @@ def _convert(tree, parent: str = ""):
 
 
 def from_jax_numpy(tree):
-    """Convert one parameter tree (text, UNet or VAE decoder) to the port's layout."""
+    """Convert one parameter tree (text, UNet, VAE decoder or encoder) to the port's layout."""
     return _convert(tree)

@@ -4,30 +4,56 @@ One worker owns one loaded ``LCMPipeline`` and implements the
 ``PipelineWorker`` protocol: ``run_job(spec) -> (png, seed)`` and
 ``run_job_with_latents`` with the [1, 4, 8, 8] float16 fingerprint
 (512 bytes), plus the pool's coalescing interface ``batchable`` /
-``run_jobs``. Batching never changes a request's output: each row's noise
-comes from its own seed, as in a solo run, its guidance and negative prompt
-are its own, and the library calls run one row at a time
-(``ops/batching.py``), the doubled batch of classic CFG included.
+``run_jobs`` and ``run_img2img`` (img2img and inpainting). Batching never
+changes a request's output: each row's noise comes from its own seed, as in
+a solo run, its guidance and negative prompt are its own, and the library
+calls run one row at a time (``ops/batching.py``), the doubled batch of
+classic CFG included.
 
 On the card each request replays its shape bucket's CUDA graph
 (``pipeline.py``); the worker's lock serializes capture and replay.
 ``warmup=True`` captures the ``default_size`` bucket (batch 1, 4 steps)
 when the worker is built.
 
-Styles (LoRA), the refiner, ControlNet, progress callbacks and img2img come
-with later slices; a spec that asks for one is refused with ``ValueError``.
+Styles (``styles``: name -> ``lora.StyleDef``) apply exclusively per
+request and are always restored to the base weights afterwards, as in the
+reference. A graph reads the weights at the addresses it captured, so a
+style is written into the UNet's live leaves (``lora.write_leaves``)
+instead of swapping the tree by pointer as the reference does:
+
+- the first time a style touches a leaf, the worker keeps a copy of its
+  base value; every merge is computed from those base copies;
+- a merged-weights LRU (``DREAMLAB_LORA_CACHE`` entries, default 2) keeps,
+  per (LoRA file, scale), the merged values of the touched leaves only;
+  applying a cached style copies them in, un-styling copies the base
+  leaves back;
+- the cache entries and the base copies are registered with the model
+  registry under the bytes they hold ("lora:..." and "lora-base:..."),
+  where the reference registers a whole UNet per entry.
+
+The refiner, ControlNet hints and progress callbacks come with later
+slices; a spec that asks for one is refused with ``ValueError``.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
-from typing import List, Tuple
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from .. import lora
 from ..pipeline import LCMPipeline
 from ..utils.png import encode_png
 from .base import GenSpec
+from .model_registry import get_model_registry
+
+logger = logging.getLogger(__name__)
 
 
 def latents_to_fingerprint(latents_nhwc: np.ndarray) -> bytes:
@@ -54,10 +80,21 @@ class CudaPipelineWorker:
     """A single-checkpoint serving worker on one CUDA device."""
 
     def __init__(self, pipeline: LCMPipeline, worker_id: int = 0, *,
+                 styles: Optional[Dict[str, lora.StyleDef]] = None,
                  default_size: Tuple[int, int] = (512, 512), warmup: bool = False):
         self.pipeline = pipeline
         self.worker_id = worker_id
-        # serializes the pipeline's graph captures and replays
+        self.styles = dict(styles or {})
+        self._style_cache: Dict[str, lora.LoRATensors] = {}  # path -> adapter
+        self._active_paths: Tuple[str, ...] = ()  # the leaves the active style wrote
+        self._base: Dict[str, torch.Tensor] = {}  # leaf path -> its unstyled value
+        # (lora path, scale) -> (registry name, {leaf path: merged value})
+        self._merged_cache: "OrderedDict[Tuple[str, float], Tuple[str, Dict]]" = OrderedDict()
+        self._merged_cache_max = int(os.environ.get("DREAMLAB_LORA_CACHE", "2"))
+        # registry names, unique per worker instance: pools may build several
+        # workers with one worker_id, and the registry overwrites equal names
+        self._tag = f"{worker_id}:{id(self):x}"
+        # serializes the pipeline's graph captures and replays, and styles
         self._lock = threading.Lock()
         if warmup:
             w, h = default_size
@@ -66,25 +103,119 @@ class CudaPipelineWorker:
 
     @staticmethod
     def _check_supported(spec: GenSpec) -> None:
-        if spec.style is not None:
-            raise ValueError(f"unknown style {spec.style!r}")
         if spec.control_image is not None or spec.progress_cb is not None:
             raise ValueError("ControlNet hints and progress callbacks come with a "
                              "later slice of the port")
+
+    # ------------------------------------------------------------------
+    # styles
+    # ------------------------------------------------------------------
+
+    def _apply_style(self, style: Optional[str], level) -> None:
+        """Exclusive style application; (None, 0) restores the base weights."""
+        style, level = lora.parse_style_request(style, level)
+        if style is not None:
+            sdef = self.styles.get(style)
+            if sdef is None:
+                raise ValueError(f"unknown style {style!r}")
+            cad = self.pipeline.bundle.unet_cfg.cross_attention_dim
+            if sdef.required_cross_attention_dim not in (None, cad):
+                raise ValueError(f"style {style!r} requires cross_attention_dim="
+                                 f"{sdef.required_cross_attention_dim}, model has {cad}")
+        params = self.pipeline.unet_params
+        # back to base first: the next style may not touch every leaf this one wrote
+        lora.write_leaves(params, {p: self._base[p] for p in self._active_paths})
+        self._active_paths = ()
+        if style is None:
+            return
+        scale = sdef.strength_for_level(level)
+        t0 = time.perf_counter()
+        key = (sdef.path, scale)
+        cached = self._merged_cache.get(key)
+        if cached is not None:
+            self._merged_cache.move_to_end(key)
+            values = cached[1]
+        else:
+            if sdef.path not in self._style_cache:
+                self._style_cache[sdef.path] = lora.load_lora(sdef.path)
+            modules = self._style_cache[sdef.path].unet
+            self._keep_base(params, modules)
+            values = lora.merged_leaves(params, modules, scale, base=self._base)
+        lora.write_leaves(params, values)
+        self._active_paths = tuple(values)
+        if cached is None:
+            self._merged_put(key, style, level, values)
+        logger.info("style %s level %d (scale %.2f) %s in %.0f ms", style, level, scale,
+                    "applied from the cache" if cached is not None else "merged",
+                    1e3 * (time.perf_counter() - t0))
+
+    def _registry(self):
+        """The model registry of the card this worker's pipeline is on."""
+        return get_model_registry(self.pipeline.device)
+
+    def _keep_base(self, params, modules) -> None:
+        """Copy the base value of every leaf ``modules`` touch that has none
+        kept yet (all leaves are at base here), and register the copies'
+        bytes."""
+        added = False
+        for path in modules:
+            w = lora.leaf(params, path)
+            if w is not None and path not in self._base:
+                self._base[path] = w.clone()
+                added = True
+        if added:
+            self._registry().register_model(
+                f"lora-base:{self._tag}", model_path="", worker_id=self.worker_id,
+                hbm_bytes=_nbytes(self._base))
+
+    def _merged_put(self, key, style: str, level: int, values) -> None:
+        """Cache a style's merged leaves, evicting least-recently used entries
+        to stay within both the entry cap (DREAMLAB_LORA_CACHE) and the
+        device's headroom (registered, then bounded: the values are already
+        allocated, so the question is whether the card can keep them; if
+        it cannot even after the older entries went, this one goes too)."""
+        if self._merged_cache_max <= 0:
+            return
+        registry = self._registry()
+        name = f"lora:{self._tag}:{style}:{level}"
+        registry.register_model(name, model_path=key[0], worker_id=self.worker_id,
+                                hbm_bytes=_nbytes(values))
+        self._merged_cache[key] = (name, values)
+        while self._merged_cache and (len(self._merged_cache) > self._merged_cache_max
+                                      or not registry.can_fit(0)):
+            victim_key, (victim_name, _) = self._merged_cache.popitem(last=False)
+            registry.unregister_model(victim_name)
+            if victim_key == key:
+                break  # dropped itself: nothing left this cache can free
+
+    def _merged_clear(self) -> None:
+        registry = self._registry()
+        for name, _ in self._merged_cache.values():
+            registry.unregister_model(name)
+        self._merged_cache.clear()
+        registry.unregister_model(f"lora-base:{self._tag}")
+
+    # ------------------------------------------------------------------
+    # requests
+    # ------------------------------------------------------------------
 
     def _generate(self, spec: GenSpec):
         self._check_supported(spec)
         width, height = spec.dims()
         seed = spec.seed if spec.seed is not None else _new_seed()
         with self._lock:
-            return self.pipeline.generate(
-                spec.prompt, height=height, width=width,
-                num_inference_steps=spec.num_inference_steps,
-                original_inference_steps=spec.original_inference_steps,
-                guidance_scale=spec.guidance_scale,
-                negative_prompt=spec.negative_prompt, seed=seed,
-                aesthetic_score=spec.aesthetic_score,
-            )
+            self._apply_style(spec.style, spec.style_level)
+            try:
+                return self.pipeline.generate(
+                    spec.prompt, height=height, width=width,
+                    num_inference_steps=spec.num_inference_steps,
+                    original_inference_steps=spec.original_inference_steps,
+                    guidance_scale=spec.guidance_scale,
+                    negative_prompt=spec.negative_prompt, seed=seed,
+                    aesthetic_score=spec.aesthetic_score,
+                )
+            finally:
+                self._apply_style(None, 0)
 
     def run_job(self, spec: GenSpec) -> Tuple[bytes, int]:
         res = self._generate(spec)
@@ -94,6 +225,30 @@ class CudaPipelineWorker:
     def run_job_with_latents(self, spec: GenSpec) -> Tuple[bytes, int, bytes]:
         res = self._generate(spec)
         return encode_png(res.images[0]), res.seed, latents_to_fingerprint(res.latents)
+
+    def run_img2img(self, spec: GenSpec, image: np.ndarray, *, strength: float = 0.5,
+                    mask: Optional[np.ndarray] = None) -> Tuple[bytes, int]:
+        """img2img, or inpainting with ``mask``; the image's dims set the
+        output size (``spec.size`` is not read)."""
+        self._check_supported(spec)
+        seed = spec.seed if spec.seed is not None else _new_seed()
+        with self._lock:
+            self._apply_style(spec.style, spec.style_level)
+            try:
+                res = self.pipeline.img2img(
+                    spec.prompt, image, mask=mask, strength=strength,
+                    aesthetic_score=spec.aesthetic_score,
+                    num_inference_steps=spec.num_inference_steps,
+                    original_inference_steps=spec.original_inference_steps,
+                    guidance_scale=spec.guidance_scale,
+                    negative_prompt=spec.negative_prompt, seed=seed,
+                )
+            finally:
+                self._apply_style(None, 0)
+        meta = {"parameters": (f"{spec.prompt}\nSteps: {spec.num_inference_steps}, "
+                               f"CFG scale: {spec.guidance_scale}, Seed: {res.seed}, "
+                               f"Strength: {strength}")}
+        return encode_png(res.images[0], meta), res.seed
 
     def batchable(self, a: GenSpec, b: GenSpec) -> bool:
         """Specs that can share one batched call: same shape, schedule,
@@ -137,18 +292,33 @@ class CudaPipelineWorker:
             lats.append(lat[0])
             noises.append(noise[:, 0])
         with self._lock:
-            res = pipe.generate(
-                [s.prompt for s in specs], height=height, width=width,
-                num_inference_steps=steps,
-                original_inference_steps=first.original_inference_steps,
-                guidance_scale=[float(s.guidance_scale) for s in specs],
-                negative_prompt=[s.negative_prompt or "" for s in specs],
-                seed=seeds[0],
-                aesthetic_score=first.aesthetic_score,
-                latents=np.stack(lats),  # raw noise; generate applies the init sigma
-                step_noises=np.stack(noises, axis=1),
-            )
+            self._apply_style(first.style, first.style_level)
+            try:
+                res = pipe.generate(
+                    [s.prompt for s in specs], height=height, width=width,
+                    num_inference_steps=steps,
+                    original_inference_steps=first.original_inference_steps,
+                    guidance_scale=[float(s.guidance_scale) for s in specs],
+                    negative_prompt=[s.negative_prompt or "" for s in specs],
+                    seed=seeds[0],
+                    aesthetic_score=first.aesthetic_score,
+                    latents=np.stack(lats),  # raw noise; generate applies the init sigma
+                    step_noises=np.stack(noises, axis=1),
+                )
+            finally:
+                self._apply_style(None, 0)
         return [
             (encode_png(res.images[i], {"parameters": _parameters_text(s, seed, steps)}), seed)
             for i, (s, seed) in enumerate(zip(specs, seeds))
         ]
+
+    def close(self) -> None:
+        """Unregister the style cache and base copies and drop the pipeline."""
+        self._merged_clear()
+        self._base.clear()
+        self._style_cache.clear()
+        self.pipeline = None
+
+
+def _nbytes(tensors: Dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors.values())

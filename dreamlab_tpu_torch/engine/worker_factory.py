@@ -3,25 +3,30 @@
 
 A path is classified by the model detector (``utils/model_detector.py``:
 tensor shapes and configs, never file names), loaded by
-``loader.load_pipeline`` (a diffusers directory or a single LDM-layout
-file) and served by a ``CudaPipelineWorker``. LoRAs and ControlNets cannot
-serve on their own and raise ``WorkerCreationError``; what later slices
-bring (mode LoRAs, textual-inversion embeddings, attached ControlNets, the
-refiner ensemble) is refused with ``ValueError``.
+``loader.load_pipeline`` with its VAE encoder (a diffusers directory or a
+single LDM-layout file), extended by the mode's textual-inversion
+embeddings before the weights are placed, merged with the mode's LoRAs,
+and served by a ``CudaPipelineWorker`` with the style registry. LoRAs and
+ControlNets cannot serve on their own and raise ``WorkerCreationError``;
+attached ControlNets and the refiner ensemble come with a later slice and
+are refused with ``ValueError``.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import lora
 from ..loader import load_pipeline
 from ..pipeline import LCMPipeline, resolve_device
+from ..textual_inversion import apply_embeddings
 from ..utils.model_detector import DetectionError, detect_model
 from .cuda_worker import CudaPipelineWorker
+from .styles import get_style_registry
 
 logger = logging.getLogger(__name__)
 
@@ -50,26 +55,60 @@ def detect_worker_type(model_path: str) -> str:
     return info.arch
 
 
+def apply_mode_loras(pipeline, loras) -> None:
+    """Merge a mode's LoRAs (``.file``, ``.strength``) into the pipeline's
+    UNet and first text tower, in place, before the worker keeps its style
+    base. A LoRA that cannot be read or merged warns and is skipped: the
+    mode serves the weights it has (a text merge that fails leaves the UNet
+    merged, as in the reference)."""
+    for entry in loras or []:
+        t0 = time.perf_counter()
+        try:
+            tensors = lora.load_lora(entry.file)
+            lora.merge_lora_into_tree(pipeline.unet_params, tensors.unet, entry.strength)
+            if tensors.text:
+                lora.merge_lora_into_tree(pipeline.text_params, tensors.text, entry.strength)
+        except Exception as e:  # warn-don't-raise: never fail a mode over an adapter
+            logger.warning("mode lora %s not applied (%s); serving base weights",
+                           entry.file, e)
+            continue
+        logger.info("mode lora %s (strength %.2f, %d modules) merged in %.0f ms", entry.file,
+                    entry.strength, tensors.num_modules, 1e3 * (time.perf_counter() - t0))
+
+
 def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
-                       device=None, loras=None, embeddings=None, controlnet=None,
-                       refiner=None,
+                       device=None, styles: Optional[Dict[str, lora.StyleDef]] = None,
+                       loras=None, embeddings=None, controlnet=None, refiner=None,
                        warmup_size: Optional[Tuple[int, int]] = None) -> CudaPipelineWorker:
-    """Load a checkpoint (diffusers directory or single file) and wrap it in a
-    CudaPipelineWorker on ``device`` (None = the CUDA device; "cpu" runs the
-    plain versions). warmup_size: (width, height) of a bucket to capture
-    before the worker is returned."""
-    for given, what, where in ((loras, "LoRAs", "the LoRA slice"),
-                               (embeddings, "textual-inversion embeddings", "the LoRA slice"),
-                               (controlnet, "ControlNets", "the ControlNet slice"),
-                               (refiner, "refiner checkpoints", "the img2img/refiner slice")):
+    """Load a checkpoint (diffusers directory or single file) with its VAE
+    encoder and wrap it in a CudaPipelineWorker on ``device`` (None = the
+    CUDA device; "cpu" runs the plain versions).
+
+    embeddings: textual-inversion entries (``.file``, optional ``.name``)
+    applied to the bundle before the weights are placed. loras: mode LoRAs
+    (``.file``, ``.strength``) merged into the placed weights. styles: the
+    per-request styles (None = ``get_style_registry()``). warmup_size:
+    (width, height) of a bucket to capture before the worker is returned.
+    """
+    for given, what in ((controlnet, "ControlNets"), (refiner, "refiner checkpoints")):
         if given:
-            raise ValueError(f"{what} are not served yet: they come with {where} of the port")
+            raise ValueError(f"{what} are not served yet: they come with the "
+                             "ControlNet/refiner slice of the port")
     dev = resolve_device(device)
     arch = detect_worker_type(model_path)
     t0 = time.perf_counter()
-    pipeline = LCMPipeline(load_pipeline(model_path, device=dev), dtype=dtype, device=dev)
+    bundle = load_pipeline(model_path, device=dev, load_vae_encoder=True)
+    if embeddings:
+        apply_embeddings(bundle, embeddings)
+    pipeline = LCMPipeline(bundle, dtype=dtype, device=dev)
+    del bundle
+    if loras:
+        apply_mode_loras(pipeline, loras)
     logger.info("worker %d: loaded %s (%s) in %.1fs", worker_id, model_path, arch,
                 time.perf_counter() - t0)
+    if styles is None:
+        styles = get_style_registry()
     if warmup_size:
-        return CudaPipelineWorker(pipeline, worker_id, default_size=warmup_size, warmup=True)
-    return CudaPipelineWorker(pipeline, worker_id)
+        return CudaPipelineWorker(pipeline, worker_id, styles=styles,
+                                  default_size=warmup_size, warmup=True)
+    return CudaPipelineWorker(pipeline, worker_id, styles=styles)

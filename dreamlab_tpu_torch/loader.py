@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -264,26 +264,23 @@ def convert_unet(tensors: Dict[str, torch.Tensor], cfg: UNetConfig, *,
     return params
 
 
-def convert_vae_decoder(tensors: Dict[str, torch.Tensor], cfg: VAEConfig, *,
-                        device="cpu") -> Dict:
-    """An ``AutoencoderKL`` state dict -> ``models/vae.py``'s decoder tree.
-    The encoder's tensors are left unread (reported as unconverted)."""
-    w = _W(tensors, torch.device(device))
-    a = "decoder.mid_block.attentions.0"
+def _vae_mid(w: _W, prefix: str) -> Dict:
+    """A VAE mid block (decoder or encoder) at ``prefix``."""
+    a = prefix + ".attentions.0"
     # new diffusers naming (to_q, ...) or the legacy one (query, ...)
     names = ({"q": ".to_q", "k": ".to_k", "v": ".to_v", "out": ".to_out.0"}
              if w.has(a + ".to_q.weight")
              else {"q": ".query", "k": ".key", "v": ".value", "out": ".proj_attn"})
     gn = ".group_norm" if w.has(a + ".group_norm.weight") else ".norm"
-    params: Dict[str, Any] = {
-        "conv_in": w.conv("decoder.conv_in"),
-        "mid": {
-            "resnet1": _resnet(w, "decoder.mid_block.resnets.0", temb=False),
-            "resnet2": _resnet(w, "decoder.mid_block.resnets.1", temb=False),
+    return {"resnet1": _resnet(w, prefix + ".resnets.0", temb=False),
+            "resnet2": _resnet(w, prefix + ".resnets.1", temb=False),
             "attention": {"norm": w.norm(a + gn),
-                          **{k: w.linear(a + v) for k, v in names.items()}},
-        },
-    }
+                          **{k: w.linear(a + v) for k, v in names.items()}}}
+
+
+def _vae_decoder(w: _W, cfg: VAEConfig) -> Dict:
+    params: Dict[str, Any] = {"conv_in": w.conv("decoder.conv_in"),
+                              "mid": _vae_mid(w, "decoder.mid_block")}
     if w.has("post_quant_conv.weight"):
         params["post_quant_conv"] = w.conv("post_quant_conv")
     n = len(cfg.block_out_channels)
@@ -297,8 +294,39 @@ def convert_vae_decoder(tensors: Dict[str, torch.Tensor], cfg: VAEConfig, *,
     params["up"] = up
     params["norm_out"] = w.norm("decoder.conv_norm_out")
     params["conv_out"] = w.conv("decoder.conv_out")
-    w.warn_unused("vae (the encoder is read by the img2img slice)")
     return params
+
+
+def _vae_encoder(w: _W, cfg: VAEConfig) -> Dict:
+    params: Dict[str, Any] = {"conv_in": w.conv("encoder.conv_in")}
+    n = len(cfg.block_out_channels)
+    down = []
+    for i in range(n):
+        block = {"resnets": [_resnet(w, f"encoder.down_blocks.{i}.resnets.{j}", temb=False)
+                             for j in range(cfg.layers_per_block)]}
+        if i < n - 1:
+            block["downsample"] = w.conv(f"encoder.down_blocks.{i}.downsamplers.0.conv")
+        down.append(block)
+    params["down"] = down
+    params["mid"] = _vae_mid(w, "encoder.mid_block")
+    params["norm_out"] = w.norm("encoder.conv_norm_out")
+    params["conv_out"] = w.conv("encoder.conv_out")
+    if w.has("quant_conv.weight"):
+        params["quant_conv"] = w.conv("quant_conv")
+    return params
+
+
+def convert_vae(tensors: Dict[str, torch.Tensor], cfg: VAEConfig, *, device="cpu",
+                encoder: bool = True) -> Tuple[Dict, Optional[Dict]]:
+    """An ``AutoencoderKL`` state dict -> (``models/vae.py``'s decoder tree,
+    its encoder tree). The encoder is None when ``encoder`` is False or the
+    file has no ``encoder.*`` tensors; unread tensors are reported."""
+    w = _W(tensors, torch.device(device))
+    dec = _vae_decoder(w, cfg)
+    enc = (_vae_encoder(w, cfg) if encoder and any(k.startswith("encoder.") for k in tensors)
+           else None)
+    w.warn_unused("vae" if encoder else "vae (the encoder is read with load_vae_encoder=True)")
+    return dec, enc
 
 
 def convert_clip_text(tensors: Dict[str, torch.Tensor], cfg: CLIPTextConfig, *,
@@ -347,11 +375,13 @@ def classify_arch(cross_attention_dim: int) -> str:
     raise ValueError(f"unsupported cross_attention_dim: {cross_attention_dim}")
 
 
-def load_pipeline(model_dir: str, *, device=None) -> PipelineBundle:
+def load_pipeline(model_dir: str, *, device=None, load_vae_encoder: bool = False) -> PipelineBundle:
     """Load a diffusers-layout checkpoint directory, or a single LDM-layout
     file (``loader_single_file.load_single_file``), into a PipelineBundle
     whose tensors lie on ``device`` (None = the CUDA device) in the file's
-    dtype."""
+    dtype. ``load_vae_encoder``: read the VAE encoder (img2img, inpainting)
+    where the directory's VAE has one; a single file's is always read, as in
+    the JAX package."""
     if os.path.isfile(model_dir):
         from .loader_single_file import load_single_file
 
@@ -367,7 +397,8 @@ def load_pipeline(model_dir: str, *, device=None) -> PipelineBundle:
 
     vae_dir = sub("vae") if os.path.isdir(sub("vae")) else sub("vae_decoder")
     vae_cfg = vae_config_from_json(_read_json(os.path.join(vae_dir, "config.json")))
-    vae_params = convert_vae_decoder(_load_weights(vae_dir), vae_cfg, device=dev)
+    vae_params, vae_encoder_params = convert_vae(_load_weights(vae_dir), vae_cfg, device=dev,
+                                                 encoder=load_vae_encoder)
 
     # SDXL-refiner checkpoints carry only the second (OpenCLIP bigG) tower,
     # which then serves as the text tower (context 1280 = cross_attention_dim,
@@ -392,6 +423,7 @@ def load_pipeline(model_dir: str, *, device=None) -> PipelineBundle:
         vae_params=vae_params,
         scheduler_cfg=load_scheduler_config(model_dir) if has_scheduler else LCMConfig(),
         model_dir=model_dir,
+        vae_encoder_params=vae_encoder_params,
     )
     if arch == "sdxl" and not is_refiner and os.path.isdir(sub("text_encoder_2")):
         bundle.text_cfg_2 = text_config_from_json(

@@ -4,7 +4,7 @@ PipelineBundle (port of ``dreamlab_tpu/loader_single_file.py``).
 The LDM state dict's namespaces (``model.diffusion_model.*``,
 ``first_stage_model.*``, ``cond_stage_model.*`` / ``conditioner.*``) are
 translated into the diffusers names the directory loader's converters read
-(``loader.convert_unet``, ``convert_vae_decoder``, ``convert_clip_text``).
+(``loader.convert_unet``, ``convert_vae``, ``convert_clip_text``).
 SD1.5-class files take the SD1.5 presets (with or without the LCM
 ``cond_proj``; SD2.x's OpenCLIP ViT-H tower and 64-dim heads where the
 cross-attention width is 1024); SDXL base and refiner files have their
@@ -12,9 +12,9 @@ topology read from the tensors' shapes, as diffusers' ``from_single_file``
 infers it.
 
 Tensors come from the port's memory-mapped reader (``utils/safetensors.py``)
-in the file's dtype and move to ``device``. The VAE encoder's tensors are
-left unread (reported as unconverted, as the directory loader does): img2img
-comes with a later slice. Single files carry no tokenizer: it loads from
+in the file's dtype and move to ``device``. The VAE encoder is read where
+the file has one (img2img, inpainting), as the JAX package reads it.
+Single files carry no tokenizer: it loads from
 ``<ckpt>.tokenizer/`` or a sibling ``tokenizer/`` directory (and
 ``tokenizer_2`` likewise), and a sidecar ``<ckpt>.scheduler_config.json`` or
 sibling ``scheduler/`` gives the scheduler config.
@@ -31,7 +31,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .loader import classify_arch, convert_clip_text, convert_unet, convert_vae_decoder
+from .loader import classify_arch, convert_clip_text, convert_unet, convert_vae
 from .models.configs import (
     SD15_TEXT,
     SD15_UNET,
@@ -360,7 +360,7 @@ def _derive_text_cfg(text_t: Tensors, *, act: str, penultimate: bool,
 
 def _vae_sdxl(tensors: Tensors, device) -> tuple:
     """The VAE's topology from its tensor names, SDXL's scaling factor, and
-    its decoder tree."""
+    its decoder and encoder trees."""
     dec = VAE_PREFIX + "decoder.up."
     n_up = 1 + max(int(m.group(1)) for k in tensors
                    if (m := re.match(re.escape(dec) + r"(\d+)\.", k)))
@@ -376,7 +376,7 @@ def _vae_sdxl(tensors: Tensors, device) -> tuple:
         norm_groups=32,
         scaling_factor=SDXL_VAE.scaling_factor,
     )
-    return vae_cfg, convert_vae_decoder(_translate_vae(tensors, n_up), vae_cfg, device=device)
+    return (vae_cfg, *convert_vae(_translate_vae(tensors, n_up), vae_cfg, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +431,7 @@ def _load_single_file_sdxl_refiner(path: str, tensors: Tensors, cad: int,
     pooled_dim = text_cfg.projection_dim or text_cfg.hidden_size
     unet_cfg = _derive_unet_cfg_sdxl(tensors, cad, pooled_dim)
     unet_params = convert_unet(_translate_unet(tensors, unet_cfg), unet_cfg, device=device)
-    vae_cfg, vae_params = _vae_sdxl(tensors, device)
+    vae_cfg, vae_params, vae_encoder_params = _vae_sdxl(tensors, device)
     # the bigG tower's tokenizer pads with "!" (id 0), not EOS
     tok_dir = _find_tokenizer_dir(path, "tokenizer_2") or _find_tokenizer_dir(path)
     return PipelineBundle(
@@ -445,6 +445,7 @@ def _load_single_file_sdxl_refiner(path: str, tensors: Tensors, cad: int,
         vae_params=vae_params,
         scheduler_cfg=_load_sidecar_scheduler(path),
         model_dir=path,
+        vae_encoder_params=vae_encoder_params,
     )
 
 
@@ -462,7 +463,7 @@ def _load_single_file_sdxl(path: str, tensors: Tensors, cad: int, device) -> Pip
     text_cfg_2 = _derive_text_cfg(text2_t, act="gelu", penultimate=True)
     unet_cfg = _derive_unet_cfg_sdxl(tensors, cad, text_cfg_2.hidden_size)
     unet_params = convert_unet(_translate_unet(tensors, unet_cfg), unet_cfg, device=device)
-    vae_cfg, vae_params = _vae_sdxl(tensors, device)
+    vae_cfg, vae_params, vae_encoder_params = _vae_sdxl(tensors, device)
     tok_dir = _find_tokenizer_dir(path)
     tok2_dir = _find_tokenizer_dir(path, "tokenizer_2")
     # the same BPE vocabulary; OpenCLIP pads with "!" (id 0), not EOS
@@ -482,6 +483,7 @@ def _load_single_file_sdxl(path: str, tensors: Tensors, cad: int, device) -> Pip
         text_cfg_2=text_cfg_2,
         text_params_2=convert_clip_text(text2_t, text_cfg_2, device=device),
         model_dir=path,
+        vae_encoder_params=vae_encoder_params,
     )
 
 
@@ -509,7 +511,7 @@ def load_single_file(path: str, *, device=None) -> PipelineBundle:
             num_attention_heads=tuple(max(1, c // 64) for c in unet_cfg.block_out_channels))
     unet_params = convert_unet(_translate_unet(tensors, unet_cfg), unet_cfg, device=dev)
     vae_cfg = SD15_VAE
-    vae_params = convert_vae_decoder(
+    vae_params, vae_encoder_params = convert_vae(
         _translate_vae(tensors, len(vae_cfg.block_out_channels)), vae_cfg, device=dev)
 
     text_t = _translate_text(tensors)
@@ -540,4 +542,5 @@ def load_single_file(path: str, *, device=None) -> PipelineBundle:
         vae_params=vae_params,
         scheduler_cfg=_load_sidecar_scheduler(path),
         model_dir=path,
+        vae_encoder_params=vae_encoder_params,
     )

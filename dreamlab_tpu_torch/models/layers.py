@@ -29,17 +29,20 @@ from ..ops.batching import per_row
 from ..ops.groupnorm import fused_group_norm_silu, group_norm_plain
 
 
-def conv2d(params, x, *, stride: int = 1):
-    """NHWC conv with torch-convention symmetric padding (kh//2, kw//2).
+def conv2d(params, x, *, stride: int = 1, padding=None):
+    """NHWC conv with torch-convention symmetric padding (kh//2, kw//2), or
+    ``padding`` pixels on every side where given (0: the "VALID" conv after
+    the VAE encoder's explicit (0, 1, 0, 1) pad).
 
-    At stride 2 this is what diffusers checkpoints were trained with
+    At stride 2 the default is what diffusers checkpoints were trained with
     (``dreamlab_tpu/models/layers.py::conv2d`` translates XLA's "SAME" to it).
     """
     w, b = params["w"], params.get("b")
     kh, kw = w.shape[2], w.shape[3]
+    pad = (kh // 2, kw // 2) if padding is None else (padding, padding)
 
     def conv(xr):
-        y = F.conv2d(xr.permute(0, 3, 1, 2), w, b, stride=stride, padding=(kh // 2, kw // 2))
+        y = F.conv2d(xr.permute(0, 3, 1, 2), w, b, stride=stride, padding=pad)
         return y.permute(0, 2, 3, 1).contiguous()
 
     return per_row(conv, x)

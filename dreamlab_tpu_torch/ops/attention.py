@@ -13,16 +13,19 @@ from .flash_attention import attention_plain, flash_attention
 
 
 def _flash_supported(q, k) -> bool:
-    """The JAX package's shape rule, keyed on the tensor's device: the UNet's
-    spatial self-attention takes the kernel. SD1.5 at 512²: N = 4096 (d = 40)
-    and N = 1024 (d = 80). SDXL at 1024²: N = 4096 with 10 heads and N = 1024
-    with 20 heads, both d = 64 (its first level has no attention).
-    Cross-attention (77 keys), SD1.5's d = 160 level and the VAE's single
-    d = 512 head take the plain path."""
+    """The UNet's spatial self-attention takes the kernel on the card: at
+    least 256 queries and 256 keys, d <= 128. SD1.5 at 512²: N = 4096
+    (d = 40) and N = 1024 (d = 80). SDXL at 1024²: N = 4096 with 10 heads
+    and N = 1024 with 20 heads, both d = 64 (its first level has no
+    attention); at 1344x768, N = 4032 and 1008. Cross-attention (77 keys),
+    SD1.5's d = 160 level and the VAE's single d = 512 head take the plain
+    path. The JAX package also asks for multiples of 128 (its Pallas
+    kernel's tiles), which sends 1344x768 to XLA; the CUDA kernel masks
+    ragged tiles, so the port does not (ROADMAP Queue 3)."""
     if not q.is_cuda:
         return False
     n, m, d = q.shape[1], k.shape[1], q.shape[3]
-    return n >= 256 and n % 128 == 0 and m % 128 == 0 and d <= 128
+    return n >= 256 and m >= 256 and d <= 128
 
 
 def dot_product_attention(q, k, v, *, scale: Optional[float] = None,

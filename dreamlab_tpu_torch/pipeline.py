@@ -1,4 +1,4 @@
-"""txt2img pipeline on PyTorch (port of ``dreamlab_tpu/pipeline.py::LCMPipeline``).
+"""txt2img, img2img and inpainting on PyTorch (port of ``dreamlab_tpu/pipeline.py::LCMPipeline``).
 
 A request runs in two parts, as in the JAX package:
 
@@ -9,11 +9,23 @@ A request runs in two parts, as in the JAX package:
   clip, round, uint8. The JAX package traces and jits it once per shape
   bucket (``_build``, ``_get_compiled``); here it is captured once per
   bucket as a CUDA graph and replayed (``_GraphProgram``). The bucket key is
-  (batch, h_lat, w_lat, steps, cfg_mode, rng_mode, original_inference_steps):
-  the schedule's entries are baked into the program as Python floats, so the
-  original step count that shapes the schedule belongs to the key. On the
-  CPU a bucket's program is the same function run eagerly
+  (batch, h_lat, w_lat, steps, cfg_mode, rng_mode, original_inference_steps,
+  task): txt2img bakes the schedule's entries into the program as Python
+  floats, so the original step count that shapes the schedule belongs to the
+  key. On the CPU a bucket's program is the same function run eagerly
   (``_EagerProgram``), cached under the same key.
+
+img2img and inpainting (``img2img``, ``inpaint``; task "img2img" /
+"inpaint") VAE-encode the init image, renoise it to the first timestep of
+the strength-truncated ladder, denoise and decode; inpainting blends the
+known region back at each step, renoised to the next timestep. Strength is
+a user's float, so these programs take the schedule as device inputs (as
+the JAX program takes it as an argument): one graph per bucket serves every
+strength. Decoding switches to ``vae.decode_tiled`` when the latent's longer
+side exceeds ``DREAMLAB_VAE_CHUNK`` (default "auto" = 160; "off" disables),
+with ``DREAMLAB_VAE_TILE``-latent tiles (default 64), both read once at
+init as the JAX package reads them; the choice follows (h, w), so the key
+needs no entry for it.
 
 SD1.5 and SDXL checkpoints. SDXL encodes with two text towers (the
 sequences concatenated, the pooled embedding from the second) and
@@ -35,7 +47,7 @@ exactly as the JAX package does, so a seed gives the same noise in both.
 seeded with the seed, straight into the program's inputs: deterministic per
 seed on one device, and not equal to host noise (as the JAX package's
 device mode is not). Explicit ``latents`` / ``step_noises`` force host
-noise. Segments (the refiner ensemble), img2img and callbacks come later.
+noise. Segments (the refiner ensemble) and callbacks come later.
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ from .scheduler.lcm import (
     guidance_scale_embedding,
     lcm_step,
     make_lcm_schedule,
+    SCHEDULE_FIELDS,
+    schedule_on,
 )
 from .utils.tokenizer import CLIPTokenizer
 
@@ -65,7 +79,7 @@ logger = logging.getLogger(__name__)
 # the refiner's uncond-branch aesthetic score (diffusers' default)
 NEGATIVE_AESTHETIC_SCORE = 2.5
 
-BucketKey = Tuple[int, int, int, int, str, str, Optional[int]]
+BucketKey = Tuple[int, int, int, int, str, str, Optional[int], str]
 
 
 @dataclasses.dataclass
@@ -87,6 +101,7 @@ class PipelineBundle:
     text_cfg_2: Optional[CLIPTextConfig] = None
     text_params_2: Optional[Dict] = None
     model_dir: Optional[str] = None  # where the loader read it; None in memory
+    vae_encoder_params: Optional[Dict] = None  # img2img / inpaint; None if not loaded
 
 
 @dataclasses.dataclass
@@ -129,19 +144,25 @@ def deterministic_backends() -> None:
 
 
 def _place_params(tree, dtype: torch.dtype, device: torch.device):
-    """Cast floating leaves to ``dtype`` on ``device`` (None, an absent tree,
-    stays None); conv weights (4-D) go channels_last, the layout of the NHWC
-    activations (models/layers.py)."""
+    """The leaves on ``device``, floating ones cast to ``dtype`` (None, an
+    absent tree, stays None); conv weights (4-D) go channels_last, the layout
+    of the NHWC activations (models/layers.py). A leaf that is already so
+    placed is taken as it is, so a checkpoint the loader put on the card is
+    not held twice there. LoRA merges write these leaves in place, which
+    inference mode forbids for tensors made outside it and vice versa: an
+    inference tensor is copied, and the copies are made outside inference
+    mode."""
     if isinstance(tree, dict):
         return {k: _place_params(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_place_params(v, dtype, device) for v in tree]
     if tree is None:
         return None
-    t = tree.to(device=device, dtype=dtype if tree.is_floating_point() else tree.dtype)
-    if t.ndim == 4:
-        t = t.contiguous(memory_format=torch.channels_last)
-    return t
+    with torch.inference_mode(False):
+        t = tree.to(device=device, dtype=dtype if tree.is_floating_point() else tree.dtype)
+        if t.ndim == 4:
+            t = t.contiguous(memory_format=torch.channels_last)
+        return t.clone() if t.is_inference() else t
 
 
 def _draw_device_noise(seed: int, lat0: torch.Tensor, noises: torch.Tensor,
@@ -158,7 +179,7 @@ def _device_inputs(pipe: "LCMPipeline", staged: _Staged) -> Dict[str, torch.Tens
     """A request's program inputs on the pipeline's device: the staged host
     arrays, and in device-RNG mode the noise drawn there."""
     x = {k: torch.from_numpy(v).to(pipe.device) for k, v in staged.inputs.items()}
-    if "lat0" not in x:
+    if staged.key[5] == "device":
         x.update(pipe._noise_buffers(staged.key))
         _draw_device_noise(staged.seed, x["lat0"], x["noises"], staged.init_noise_sigma)
     return x
@@ -219,7 +240,7 @@ class _GraphProgram:
         with torch.inference_mode():
             for name, arr in staged.inputs.items():
                 self.inputs[name].copy_(torch.from_numpy(arr))
-            if "lat0" not in staged.inputs:
+            if staged.key[5] == "device":
                 _draw_device_noise(staged.seed, self.inputs["lat0"], self.inputs["noises"],
                                    staged.init_noise_sigma)
             self.graph.replay()
@@ -251,10 +272,18 @@ class LCMPipeline:
         self.text_params_2 = _place_params(bundle.text_params_2, dtype, self.device)
         self.unet_params = _place_params(bundle.unet_params, dtype, self.device)
         self.vae_params = _place_params(bundle.vae_params, dtype, self.device)
+        self.vae_encoder_params = _place_params(bundle.vae_encoder_params, dtype, self.device)
         self.bundle = dataclasses.replace(bundle, text_params=None, text_params_2=None,
-                                          unet_params=None, vae_params=None)
+                                          unet_params=None, vae_params=None,
+                                          vae_encoder_params=None)
         self.vae_scale = bundle.vae_cfg.scale_factor
         self.latent_channels = bundle.vae_cfg.latent_channels
+        # the JAX package's tiled-decode settings, read the same way
+        chunk = os.environ.get("DREAMLAB_VAE_CHUNK", "auto")
+        self._vae_chunk: Optional[int] = (
+            None if chunk.lower() in ("0", "off", "false", "no")
+            else 160 if chunk == "auto" else int(chunk))
+        self._vae_tile = int(os.environ.get("DREAMLAB_VAE_TILE", "64"))
         self._schedules: Dict[Tuple, LCMSchedule] = {}
         # bucket key -> program (a captured graph on the card, eager on the CPU)
         self._compiled: Dict[BucketKey, Any] = {}
@@ -341,15 +370,38 @@ class LCMPipeline:
         seq2, pooled = clip_text.encode_text(self.text_params_2, ids_2, b.text_cfg_2)
         return torch.cat([seq1, seq2], dim=-1), pooled
 
+    def _encode_x0(self, image, eps_post):
+        """The init image's latent: a sample of the encoder's posterior,
+        times the scaling factor (the JAX package's ``encode_x0``)."""
+        cfg, c = self.bundle.vae_cfg, self.latent_channels
+        moments = vae.encode_moments(self.vae_encoder_params, cfg, image)
+        mean, logvar = moments[..., :c], moments[..., c:].clamp(-30.0, 20.0)
+        return (mean + torch.exp(0.5 * logvar) * eps_post) * cfg.scaling_factor
+
+    def _decode(self, latents):
+        """VAE decode, tiled when the latent's longer side exceeds the chunk."""
+        b = self.bundle
+        if self._vae_chunk is not None and max(latents.shape[1:3]) > self._vae_chunk:
+            return vae.decode_tiled(self.vae_params, b.vae_cfg, latents, tile=self._vae_tile,
+                                    overlap=max(self._vae_tile // 4, 1))
+        return vae.decode(self.vae_params, b.vae_cfg, latents)
+
     def _program(self, key: BucketKey, x: Dict[str, torch.Tensor]):
         """Encode, denoise and decode one bucket's batch from its inputs
-        ``x`` (see ``_stage``); returns (uint8 images [B, H, W, 3], fp32
-        denoised latents [B, h, w, C]) on the device. Reads its inputs and
-        never writes them, so a captured graph can replay it."""
-        _, _, _, steps, mode, _, original_steps = key
+        ``x`` (see ``_stage``, ``_stage_img2img``); returns (uint8 images
+        [B, H, W, 3], fp32 denoised latents [B, h, w, C]) on the device.
+        Reads its inputs and never writes them, so a captured graph can
+        replay it."""
+        _, _, _, steps, mode, _, original_steps, task = key
         b = self.bundle
         dev = self.device
-        schedule = self._schedule(steps, original_steps)
+        if task == "txt2img":
+            schedule = self._schedule(steps, original_steps)
+            timestep = lambda i: torch.full((rows,), int(schedule.timesteps[i]),
+                                            dtype=torch.int32, device=dev)
+        else:  # the strength-truncated schedule is an input
+            schedule = schedule_on(x)
+            timestep = lambda i: schedule.timesteps[i].expand(rows)
         ctx, pooled = self._encode(x["ids"], x.get("ids_2"))
         kw = {}
         if mode == "wcond":
@@ -363,17 +415,27 @@ class LCMPipeline:
                 pooled = torch.cat([pooled_neg, pooled])
             kw.update(added_text_embeds=pooled, added_time_ids=x["time_ids"])
         rows = ctx.shape[0]
-        lat, noises = x["lat0"], x["noises"]
-        for i in range(schedule.num_steps):
-            t = torch.full((rows,), int(schedule.timesteps[i]), dtype=torch.int32, device=dev)
+        noises = x["noises"]
+        if task == "txt2img":
+            lat = x["lat0"]
+        else:  # renoise the init image to the ladder's first timestep
+            x0 = self._encode_x0(x["image"], x["eps_post"])
+            lat = schedule.sqrt_alpha_prod[0] * x0 + schedule.sqrt_beta_prod[0] * x["noise0"]
+        for i in range(steps):
             xin = torch.cat([lat, lat]) if mode == "cfg" else lat
-            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, t, ctx, **kw)
+            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, timestep(i), ctx, **kw)
             if mode == "cfg":
                 uncond, cond = noise_pred.chunk(2)
                 noise_pred = uncond + g * (cond - uncond)
             lat, denoised = lcm_step(schedule, i, noise_pred, lat, noises[i],
                                      prediction_type=b.scheduler_cfg.prediction_type)
-        img = vae.decode(self.vae_params, b.vae_cfg, denoised / b.vae_cfg.scaling_factor)
+            if task == "inpaint":  # the known region, renoised to the next timestep
+                known = (schedule.sqrt_alpha_prod_prev[i] * x0
+                         + schedule.sqrt_beta_prod_prev[i] * x["noises_known"][i])
+                lat = x["mask_lat"] * lat + (1.0 - x["mask_lat"]) * known
+        if task == "inpaint":
+            denoised = x["mask_lat"] * denoised + (1.0 - x["mask_lat"]) * x0
+        img = self._decode(denoised / b.vae_cfg.scaling_factor)
         img = torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
         return torch.round(img * 255.0).to(torch.uint8), denoised
 
@@ -396,27 +458,13 @@ class LCMPipeline:
     # staging and the public API
     # ------------------------------------------------------------------
 
-    def _stage(self, prompt, *, height: int = 512, width: int = 512,
-               num_inference_steps: int = 4,
-               original_inference_steps: Optional[int] = None,
-               guidance_scale: Any = 1.0, negative_prompt: Any = None,
-               seed: Optional[int] = None, batch: Optional[int] = None,
-               latents: Optional[np.ndarray] = None,
-               step_noises: Optional[np.ndarray] = None,
-               rng: Optional[str] = None, aesthetic_score: float = 6.0) -> _Staged:
-        """Host staging of one request (``generate``'s arguments)."""
+    def _conditioning(self, prompts, guidance_scale, negative_prompt, height: int, width: int,
+                      aesthetic_score: float) -> Tuple[str, Dict[str, np.ndarray]]:
+        """(guidance mode, the program's text and guidance inputs) of a batch
+        of prompts: token ids (the negatives' in cfg mode), per-row guidance
+        or its w-embedding, SDXL's micro-conditioning ids."""
         b = self.bundle
-        divisor = self.vae_scale * 2 ** (b.unet_cfg.num_blocks - 1)
-        if height % divisor or width % divisor:
-            raise ValueError(f"height/width must be multiples of {divisor} "
-                             f"(got {width}x{height})")
-        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-        if batch is not None and len(prompts) == 1:
-            prompts = prompts * batch
         bsz = len(prompts)
-        if seed is None:
-            seed = int(np.random.randint(0, 2**31 - 1))
-
         gs = np.asarray(guidance_scale, np.float32).reshape(-1)
         if gs.size == 1:
             gs = np.full((bsz,), float(gs[0]), np.float32)
@@ -427,6 +475,48 @@ class LCMPipeline:
         negs = [""] * bsz if neg is None else [neg] * bsz if isinstance(neg, str) else list(neg)
         if len(negs) != bsz:
             raise ValueError(f"negative_prompt has {len(negs)} entries for batch {bsz}")
+
+        def tokens(tok, texts):
+            return np.asarray(tok(texts), np.int64)
+
+        inputs = {"ids": tokens(b.tokenizer, prompts)}
+        if mode == "cfg":
+            inputs["ids_neg"] = tokens(b.tokenizer, negs)
+            inputs["guidance"] = gs
+        if b.arch == "sdxl" and self.text_params_2 is not None:
+            inputs["ids_2"] = tokens(b.tokenizer_2, prompts)
+            if mode == "cfg":
+                inputs["ids_2_neg"] = tokens(b.tokenizer_2, negs)
+        if mode == "wcond":
+            inputs["w_emb"] = guidance_scale_embedding(gs - 1.0, b.unet_cfg.time_cond_proj_dim)
+        if b.arch == "sdxl":
+            time_ids = self._time_ids(height, width, bsz, aesthetic_score, cfg_mode=mode)
+            if mode == "cfg":  # [2, B, n] -> the uncond rows, then the cond rows
+                time_ids = np.concatenate([time_ids[0], time_ids[1]])
+            inputs["time_ids"] = time_ids
+        return mode, inputs
+
+    def _stage(self, prompt, *, height: int = 512, width: int = 512,
+               num_inference_steps: int = 4,
+               original_inference_steps: Optional[int] = None,
+               guidance_scale: Any = 1.0, negative_prompt: Any = None,
+               seed: Optional[int] = None, batch: Optional[int] = None,
+               latents: Optional[np.ndarray] = None,
+               step_noises: Optional[np.ndarray] = None,
+               rng: Optional[str] = None, aesthetic_score: float = 6.0) -> _Staged:
+        """Host staging of one txt2img request (``generate``'s arguments)."""
+        divisor = self.vae_scale * 2 ** (self.bundle.unet_cfg.num_blocks - 1)
+        if height % divisor or width % divisor:
+            raise ValueError(f"height/width must be multiples of {divisor} "
+                             f"(got {width}x{height})")
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        if batch is not None and len(prompts) == 1:
+            prompts = prompts * batch
+        bsz = len(prompts)
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        mode, cond = self._conditioning(prompts, guidance_scale, negative_prompt, height, width,
+                                        aesthetic_score)
 
         rng_mode = rng or os.environ.get("DREAMLAB_RNG", "host")
         if rng_mode not in ("host", "device"):
@@ -453,28 +543,69 @@ class LCMPipeline:
                                      f"want {want}")
             inputs.update(lat0=np.ascontiguousarray(lat0, np.float32),
                           noises=np.ascontiguousarray(noises, np.float32))
-
-        def tokens(tok, texts):
-            return np.asarray(tok(texts), np.int64)
-
-        inputs["ids"] = tokens(b.tokenizer, prompts)
-        if mode == "cfg":
-            inputs["ids_neg"] = tokens(b.tokenizer, negs)
-            inputs["guidance"] = gs
-        two_towers = b.arch == "sdxl" and self.text_params_2 is not None
-        if two_towers:
-            inputs["ids_2"] = tokens(b.tokenizer_2, prompts)
-            if mode == "cfg":
-                inputs["ids_2_neg"] = tokens(b.tokenizer_2, negs)
-        if mode == "wcond":
-            inputs["w_emb"] = guidance_scale_embedding(gs - 1.0, b.unet_cfg.time_cond_proj_dim)
-        if b.arch == "sdxl":
-            time_ids = self._time_ids(height, width, bsz, aesthetic_score, cfg_mode=mode)
-            if mode == "cfg":  # [2, B, n] -> the uncond rows, then the cond rows
-                time_ids = np.concatenate([time_ids[0], time_ids[1]])
-            inputs["time_ids"] = time_ids
+        inputs.update(cond)
         key = (bsz, h_lat, w_lat, num_inference_steps, mode, rng_mode,
-               original_inference_steps)
+               original_inference_steps, "txt2img")
+        return _Staged(key=key, inputs=inputs, seed=seed,
+                       init_noise_sigma=float(schedule.init_noise_sigma))
+
+    def _stage_img2img(self, prompt, init_image, *, mask: Optional[np.ndarray] = None,
+                       strength: float = 0.5, aesthetic_score: float = 6.0,
+                       num_inference_steps: int = 4,
+                       original_inference_steps: Optional[int] = None,
+                       guidance_scale: Any = 1.0, negative_prompt: Any = None,
+                       seed: Optional[int] = None) -> _Staged:
+        """Host staging of one img2img or inpaint request (``img2img``'s
+        arguments), draw for draw the JAX package's: one RandomState of the
+        seed gives the posterior sample, the renoising noise, the step noises
+        and, for inpainting, the known region's step noises, in NCHW."""
+        if self.vae_encoder_params is None:
+            raise ValueError("checkpoint has no VAE encoder weights")
+        if not 0.0 < strength <= 1.0:
+            raise ValueError("strength must be in (0, 1]")
+        img = np.asarray(init_image)
+        if img.ndim == 3:
+            img = img[None]
+        bsz, height, width, _ = img.shape
+        divisor = self.vae_scale * 2 ** (self.bundle.unet_cfg.num_blocks - 1)
+        if height % divisor or width % divisor:
+            raise ValueError(f"image dims must be multiples of {divisor}")
+        prompts = [prompt] * bsz if isinstance(prompt, str) else list(prompt)
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        mode, cond = self._conditioning(prompts, guidance_scale, negative_prompt, height, width,
+                                        aesthetic_score)
+        # built per request: the programs take it as device inputs, and the
+        # strength is the user's float
+        schedule = make_lcm_schedule(self.bundle.scheduler_cfg, num_inference_steps,
+                                     original_inference_steps, strength)
+        h_lat, w_lat = height // self.vae_scale, width // self.vae_scale
+        rs = np.random.RandomState(seed & 0x7FFFFFFF)
+        shape = (bsz, self.latent_channels, h_lat, w_lat)
+        steps_shape = (num_inference_steps, *shape)
+        nhwc = lambda a: np.ascontiguousarray(a.astype(np.float32).transpose(0, 2, 3, 1))
+        nshwc = lambda a: np.ascontiguousarray(a.astype(np.float32).transpose(0, 1, 3, 4, 2))
+        inputs = {"eps_post": nhwc(rs.randn(*shape)), "noise0": nhwc(rs.randn(*shape)),
+                  "noises": nshwc(rs.randn(*steps_shape)),
+                  "image": np.ascontiguousarray((img.astype(np.float32) / 255.0) * 2.0 - 1.0)}
+        task = "img2img"
+        if mask is not None:
+            task = "inpaint"
+            m = np.asarray(mask, np.float32)
+            if m.ndim == 3:
+                m = m[..., 0]
+            if m.shape != (height, width):
+                raise ValueError(f"mask shape {m.shape} != image dims {(height, width)}")
+            # any repainted pixel in a latent cell marks the cell for regeneration
+            s = self.vae_scale
+            m_lat = (m > 0).astype(np.float32).reshape(h_lat, s, w_lat, s).max(axis=(1, 3))
+            inputs["mask_lat"] = np.repeat(m_lat[None, :, :, None], bsz, axis=0)
+            inputs["noises_known"] = nshwc(rs.randn(*steps_shape))
+        inputs.update(cond)
+        inputs.update({name: np.ascontiguousarray(getattr(schedule, name))
+                       for name in SCHEDULE_FIELDS})
+        key = (bsz, h_lat, w_lat, num_inference_steps, mode, "host",
+               original_inference_steps, task)
         return _Staged(key=key, inputs=inputs, seed=seed,
                        init_noise_sigma=float(schedule.init_noise_sigma))
 
@@ -528,9 +659,44 @@ class LCMPipeline:
         images, latents_np = self._get_compiled(staged)(self, staged)
         return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
 
+    def img2img(self, prompt, init_image: np.ndarray, *, mask: Optional[np.ndarray] = None,
+                strength: float = 0.5, aesthetic_score: float = 6.0,
+                num_inference_steps: int = 4, original_inference_steps: Optional[int] = None,
+                guidance_scale: Any = 1.0, negative_prompt: Any = None,
+                seed: Optional[int] = None) -> GenerationResult:
+        """Image to image: VAE-encode, renoise to the strength-truncated LCM
+        ladder, denoise, decode; one program per bucket, as ``generate``.
+
+        init_image: [H, W, 3] uint8 (or [B, H, W, 3]); H and W set the output
+        size and follow ``generate``'s divisibility rule. strength in (0, 1]:
+        the share of the trained ladder to traverse (diffusers' img2img
+        semantics); 1.0 is about txt2img's noise. mask: [H, W] or [H, W, 1],
+        nonzero = regenerate there (legacy inpainting, ``inpaint``).
+        """
+        staged = self._stage_img2img(
+            prompt, init_image, mask=mask, strength=strength, aesthetic_score=aesthetic_score,
+            num_inference_steps=num_inference_steps,
+            original_inference_steps=original_inference_steps, guidance_scale=guidance_scale,
+            negative_prompt=negative_prompt, seed=seed)
+        images, latents_np = self._get_compiled(staged)(self, staged)
+        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+
+    def inpaint(self, prompt, init_image: np.ndarray, mask: np.ndarray, *,
+                strength: float = 1.0, **kwargs) -> GenerationResult:
+        """Legacy inpainting: ``img2img`` with the unmasked region blended
+        back at each step, renoised to the next timestep. mask: [H, W] or
+        [H, W, 1]; nonzero = regenerate that region."""
+        return self.img2img(prompt, init_image, mask=mask, strength=strength, **kwargs)
+
     def _generate_eager(self, prompt, **kwargs) -> GenerationResult:
         """``generate`` without the bucket's graph: the same program run
         eagerly (the before/after comparison of ``chip_smoke.py``)."""
         staged = self._stage(prompt, **kwargs)
+        images, latents_np = _EagerProgram(staged.key)(self, staged)
+        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+
+    def _img2img_eager(self, prompt, init_image, **kwargs) -> GenerationResult:
+        """``img2img`` without the bucket's graph (``_generate_eager``'s twin)."""
+        staged = self._stage_img2img(prompt, init_image, **kwargs)
         images, latents_np = _EagerProgram(staged.key)(self, staged)
         return GenerationResult(images=images, seed=staged.seed, latents=latents_np)

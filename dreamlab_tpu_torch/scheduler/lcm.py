@@ -4,6 +4,12 @@
 ``make_lcm_schedule`` and ``guidance_scale_embedding`` are host-side copies
 of the JAX package's (its module imports JAX), in float64 numpy. ``lcm_step`` is the per-step update in
 fp32 torch. Semantics follow diffusers' ``LCMScheduler``.
+
+A schedule's entries reach ``lcm_step`` in one of two forms: host arrays,
+read as Python floats (the txt2img program bakes them into its CUDA graph),
+or fp32 device tensors (``schedule_on``: the img2img and inpaint programs
+take the strength-truncated schedule as an input, so one graph serves every
+strength). Both compute in fp32.
 """
 
 from __future__ import annotations
@@ -151,11 +157,28 @@ def make_lcm_schedule(config: LCMConfig, num_inference_steps: int,
     )
 
 
+SCHEDULE_FIELDS = ("timesteps", "sqrt_alpha_prod", "sqrt_beta_prod", "sqrt_alpha_prod_prev",
+                   "sqrt_beta_prod_prev", "c_skip", "c_out", "add_noise")
+
+
+def schedule_on(arrays, init_noise_sigma: float = 1.0) -> LCMSchedule:
+    """A schedule whose entries are the given tensors (``arrays[name]`` for
+    each of ``SCHEDULE_FIELDS``: int32 timesteps, fp32 coefficients)."""
+    return LCMSchedule(**{name: arrays[name] for name in SCHEDULE_FIELDS},
+                       init_noise_sigma=init_noise_sigma)
+
+
+def _at(arr, i: int):
+    """Entry ``i`` of a schedule array: a 0-d tensor of a device schedule,
+    else the fp32 host value as a Python float."""
+    return arr[i] if isinstance(arr, torch.Tensor) else float(arr[i])
+
+
 def _predict_x0(schedule: LCMSchedule, i: int, model_output, sample,
                 prediction_type: str):
     # fp32 scalars, exactly the JAX package's schedule entries
-    sa = float(schedule.sqrt_alpha_prod[i])
-    sb = float(schedule.sqrt_beta_prod[i])
+    sa = _at(schedule.sqrt_alpha_prod, i)
+    sb = _at(schedule.sqrt_beta_prod, i)
     if prediction_type == "epsilon":
         return (sample - sb * model_output) / sa
     if prediction_type == "v_prediction":
@@ -175,11 +198,14 @@ def lcm_step(schedule: LCMSchedule, i: int, model_output, sample, noise,
     """
     sample = sample.float()
     x0 = _predict_x0(schedule, i, model_output.float(), sample, prediction_type)
-    denoised = float(schedule.c_out[i]) * x0 + float(schedule.c_skip[i]) * sample
+    denoised = _at(schedule.c_out, i) * x0 + _at(schedule.c_skip, i) * sample
+    renoise = lambda: (_at(schedule.sqrt_alpha_prod_prev, i) * denoised
+                       + _at(schedule.sqrt_beta_prod_prev, i) * noise.float())
+    if isinstance(schedule.add_noise, torch.Tensor):
+        # no host branch on a device value: a captured graph cannot sync
+        return torch.where(schedule.add_noise[i] > 0, renoise(), denoised), denoised
     if schedule.add_noise[i] > 0:
-        prev = (float(schedule.sqrt_alpha_prod_prev[i]) * denoised
-                + float(schedule.sqrt_beta_prod_prev[i]) * noise.float())
-        return prev, denoised
+        return renoise(), denoised
     return denoised, denoised
 
 

@@ -1,7 +1,8 @@
 """Randomly initialised SD1.5 and SDXL bundles, full width or tiny, and a writer
 that saves a bundle as a diffusers-layout checkpoint directory (port of
 ``dreamlab_tpu/testing.py::random_bundle`` and of the exporters of
-``tests/test_loader.py``).
+``tests/test_loader.py``), and random LoRA state dicts over every UNet
+projection the LoRA key map reaches (``random_lora``).
 
 Speed does not depend on weight values, so the chip smoke run drives the real
 architectures with seeded random weights when no checkpoint is at hand. The
@@ -23,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from . import lora
 from .models import clip_text, configs, unet, vae
 from .pipeline import PipelineBundle
 from .scheduler.lcm import LCMConfig
@@ -34,8 +36,8 @@ WORDS = ["cat", "dog", "sunset", "mountain"]
 
 def random_bundle(arch: str = "sd15", *, tiny: bool = False, seed: int = 0,
                   device="cpu") -> PipelineBundle:
-    """A bundle with random fp32 weights drawn on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``.
+    """A bundle with random fp32 weights, the VAE encoder included, drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``.
 
     The tiny SDXL bundle keeps the published text widths (768 + 1280 = the
     2048-wide context by which the loader tells SDXL) at two layers each,
@@ -85,7 +87,73 @@ def random_bundle(arch: str = "sd15", *, tiny: bool = False, seed: int = 0,
             tokenizer_2=tok_2,
             text_cfg_2=text_cfg_2,
             text_params_2=None if text_cfg_2 is None else clip_text.init_params(text_cfg_2, gen),
+            # drawn last: the other trees keep the values they had without it
+            vae_encoder_params=vae.init_encoder_params(vae_cfg, gen),
         )
+
+
+_DIFFUSERS_LEAF = {"q": "to_q", "k": "to_k", "v": "to_v", "out": "to_out.0",
+                   "ff_geglu": "ff.net.0.proj", "ff_out": "ff.net.2"}
+
+
+def lora_paths(unet_params):
+    """Every UNet projection path a LoRA key map reaches: each spatial
+    transformer's proj_in / proj_out and its blocks' q, k, v, out, GEGLU and
+    FF-out linears (``lora._module_to_tree_path``'s targets)."""
+    def transformers():
+        for side in ("down", "up"):
+            for i, block in enumerate(unet_params[side]):
+                for j, _ in enumerate(block.get("attentions") or []):
+                    yield f"{side}.{i}.attentions.{j}", block["attentions"][j]
+        if "attention" in unet_params["mid"]:
+            yield "mid.attention", unet_params["mid"]["attention"]
+
+    for prefix, tr in transformers():
+        yield f"{prefix}.proj_in"
+        for k, blk in enumerate(tr["blocks"]):
+            for attn in ("attn1", "attn2"):
+                for leaf in ("q", "k", "v", "out"):
+                    yield f"{prefix}.blocks.{k}.{attn}.{leaf}"
+            yield f"{prefix}.blocks.{k}.ff_geglu"
+            yield f"{prefix}.blocks.{k}.ff_out"
+        yield f"{prefix}.proj_out"
+
+
+def _diffusers_module(path: str) -> str:
+    """A UNet tree path -> its diffusers module name (the key map's inverse)."""
+    m = path.replace("mid.attention", "mid_block.attentions.0")
+    m = re.sub(r"^(down|up)\.(\d+)", r"\1_blocks.\2", m)
+    m = re.sub(r"\.blocks\.(\d+)", r".transformer_blocks.\1", m)
+    stem, _, leaf = m.rpartition(".")
+    return f"{stem}.{_DIFFUSERS_LEAF.get(leaf, leaf)}"
+
+
+def random_lora(unet_params, *, rank: int = 8, dialect: str = "kohya", seed: int = 0,
+                alpha: float = 4.0, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """A LoRA state dict over every path of ``lora_paths`` (shapes from the
+    tree), in the kohya dialect (``lora_unet_..._to_q.lora_down.weight``,
+    with ``.alpha``) or the diffusers / PEFT one (``unet....to_q.lora_A.weight``,
+    alpha = rank): down ~ N(0, 1/in), up ~ N(0, 0.01/rank), on the tree's device."""
+    out: Dict[str, torch.Tensor] = {}
+    for path in lora_paths(unet_params):
+        w = lora.leaf(unet_params, path)
+        gen = torch.Generator(device=w.device).manual_seed(seed)
+        seed += 1
+        n_out, n_in = w.shape
+        down = torch.randn((rank, n_in), generator=gen, device=w.device) / n_in ** 0.5
+        up = torch.randn((n_out, rank), generator=gen, device=w.device) * (0.1 / rank ** 0.5)
+        module = _diffusers_module(path)
+        if dialect == "kohya":
+            key = "lora_unet_" + module.replace(".", "_")
+            out.update({f"{key}.lora_down.weight": down.to(dtype),
+                        f"{key}.lora_up.weight": up.to(dtype),
+                        f"{key}.alpha": torch.tensor(alpha, dtype=dtype)})
+        elif dialect == "diffusers":
+            out.update({f"unet.{module}.lora_A.weight": down.to(dtype),
+                        f"unet.{module}.lora_B.weight": up.to(dtype)})
+        else:
+            raise ValueError(f"unknown LoRA dialect {dialect!r}")
+    return out
 
 
 def cast_params(bundle: PipelineBundle, dtype: torch.dtype) -> PipelineBundle:
@@ -101,7 +169,8 @@ def cast_params(bundle: PipelineBundle, dtype: torch.dtype) -> PipelineBundle:
 
     return dataclasses.replace(bundle, **{
         name: cast(getattr(bundle, name))
-        for name in ("text_params", "text_params_2", "unet_params", "vae_params")})
+        for name in ("text_params", "text_params_2", "unet_params", "vae_params",
+                     "vae_encoder_params")})
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +205,12 @@ class _Out(dict):
     def attention(self, key, p, out="to_out.0"):
         for name, sub in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("out", out)):
             self.linear(f"{key}.{sub}", p[name])
+
+    def vae_mid(self, key, p):
+        self.resnet(key + ".resnets.0", p["resnet1"])
+        self.resnet(key + ".resnets.1", p["resnet2"])
+        self.norm(key + ".attentions.0.group_norm", p["attention"]["norm"])
+        self.attention(key + ".attentions.0", p["attention"])
 
     def transformer(self, key, p):
         self.norm(key + ".norm", p["norm"])
@@ -182,16 +257,14 @@ def export_unet(params) -> Dict[str, torch.Tensor]:
     return out
 
 
-def export_vae_decoder(params) -> Dict[str, torch.Tensor]:
+def export_vae(params, encoder=None) -> Dict[str, torch.Tensor]:
+    """An ``AutoencoderKL`` state dict: the decoder's tree, and the encoder's
+    where given."""
     out = _Out()
     if "post_quant_conv" in params:
         out.conv("post_quant_conv", params["post_quant_conv"])
     out.conv("decoder.conv_in", params["conv_in"])
-    out.resnet("decoder.mid_block.resnets.0", params["mid"]["resnet1"])
-    out.resnet("decoder.mid_block.resnets.1", params["mid"]["resnet2"])
-    a = params["mid"]["attention"]
-    out.norm("decoder.mid_block.attentions.0.group_norm", a["norm"])
-    out.attention("decoder.mid_block.attentions.0", a)
+    out.vae_mid("decoder.mid_block", params["mid"])
     for k, block in enumerate(params["up"]):
         for j, res in enumerate(block["resnets"]):
             out.resnet(f"decoder.up_blocks.{k}.resnets.{j}", res)
@@ -199,6 +272,19 @@ def export_vae_decoder(params) -> Dict[str, torch.Tensor]:
             out.conv(f"decoder.up_blocks.{k}.upsamplers.0.conv", block["upsample"])
     out.norm("decoder.conv_norm_out", params["norm_out"])
     out.conv("decoder.conv_out", params["conv_out"])
+    if encoder is None:
+        return out
+    out.conv("encoder.conv_in", encoder["conv_in"])
+    for i, block in enumerate(encoder["down"]):
+        for j, res in enumerate(block["resnets"]):
+            out.resnet(f"encoder.down_blocks.{i}.resnets.{j}", res)
+        if "downsample" in block:
+            out.conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", block["downsample"])
+    out.vae_mid("encoder.mid_block", encoder["mid"])
+    out.norm("encoder.conv_norm_out", encoder["norm_out"])
+    out.conv("encoder.conv_out", encoder["conv_out"])
+    if "quant_conv" in encoder:
+        out.conv("quant_conv", encoder["quant_conv"])
     return out
 
 
@@ -307,7 +393,7 @@ def write_diffusers_dir(bundle: PipelineBundle, model_dir: str) -> str:
                       "layers_per_block": vcfg.layers_per_block,
                       "norm_num_groups": vcfg.norm_groups,
                       "scaling_factor": vcfg.scaling_factor},
-              export_vae_decoder(bundle.vae_params))
+              export_vae(bundle.vae_params, bundle.vae_encoder_params))
     towers = [("", bundle.tokenizer, bundle.text_cfg, bundle.text_params)]
     if bundle.text_params_2 is not None:
         towers.append(("_2", bundle.tokenizer_2, bundle.text_cfg_2, bundle.text_params_2))
@@ -374,13 +460,16 @@ def _ldm_unet_key(key: str, cfg: configs.UNetConfig) -> str:
 
 
 def _ldm_vae_key(key: str, n_blocks: int) -> str:
-    """A diffusers AutoencoderKL decoder name -> its LDM name (without the
+    """A diffusers AutoencoderKL name -> its LDM name (without the
     ``first_stage_model.`` prefix)."""
     m = re.match(r"decoder\.up_blocks\.(\d+)\.(.*)", key)
     if m:  # the up blocks run in reverse order between the layouts
         key = f"decoder.up.{n_blocks - 1 - int(m.group(1))}.{m.group(2)}"
+    key = re.sub(r"^encoder\.down_blocks\.", "encoder.down.", key)
     key = re.sub(r"\.resnets\.", ".block.", key)
-    for diff, ldm in (("upsamplers.0.conv", "upsample.conv"), ("conv_shortcut", "nin_shortcut"),
+    for diff, ldm in (("upsamplers.0.conv", "upsample.conv"),
+                      ("downsamplers.0.conv", "downsample.conv"),
+                      ("conv_shortcut", "nin_shortcut"),
                       ("mid_block.block.0", "mid.block_1"), ("mid_block.block.1", "mid.block_2"),
                       ("mid_block.attentions.0", "mid.attn_1"),
                       ("attn_1.group_norm", "attn_1.norm"), ("attn_1.to_out.0", "attn_1.proj_out"),
@@ -401,7 +490,7 @@ def write_single_file(bundle: PipelineBundle, path: str) -> str:
            for k, t in export_unet(bundle.unet_params).items()}
     n = len(bundle.vae_cfg.block_out_channels)
     out.update({"first_stage_model." + _ldm_vae_key(k, n): t
-                for k, t in export_vae_decoder(bundle.vae_params).items()})
+                for k, t in export_vae(bundle.vae_params, bundle.vae_encoder_params).items()})
     out.update({"cond_stage_model.transformer." + k: t
                 for k, t in export_clip_text(bundle.text_params).items()})
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

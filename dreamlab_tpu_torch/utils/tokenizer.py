@@ -98,6 +98,13 @@ class CLIPTokenizer:
         # CLIP pads with EOS
         self.pad_id = self.encoder[pad_token] if pad_token else self.eos_id
         self._cache: Dict[str, List[str]] = {}
+        # textual-inversion triggers: lowercased word -> learned token ids
+        self.triggers: Dict[str, List[int]] = {}
+
+    def add_trigger(self, word: str, ids: List[int]) -> None:
+        """Map a whole word to explicit token ids (textual inversion): the
+        word bypasses BPE and expands to its learned vectors' ids."""
+        self.triggers[word.lower()] = list(ids)
 
     @classmethod
     def from_pretrained(cls, tokenizer_dir: str, **kwargs) -> "CLIPTokenizer":
@@ -170,8 +177,24 @@ class CLIPTokenizer:
         return out
 
     def tokenize(self, text: str) -> List[int]:
-        """Raw BPE ids, no specials."""
+        """Raw BPE ids, no specials. Trigger words match whole whitespace
+        words (trailing ",.;:!?" tolerated) before the BPE word pattern,
+        which would split names such as "style2" or "my-style"."""
         text = " ".join(text.split()).strip().lower()
+        if not self.triggers:
+            return self._bpe_ids(text)
+        ids: List[int] = []
+        for chunk in text.split(" "):
+            stripped = chunk.rstrip(",.;:!?")
+            if stripped in self.triggers:
+                ids.extend(self.triggers[stripped])
+                chunk = chunk[len(stripped):]  # tokenize the punctuation
+                if not chunk:
+                    continue
+            ids.extend(self._bpe_ids(chunk))
+        return ids
+
+    def _bpe_ids(self, text: str) -> List[int]:
         ids: List[int] = []
         for tok in _word_pattern().findall(text):
             btok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))

@@ -78,6 +78,8 @@ def test_build_reports_registers(cuda):
     (1, 128, 128, 2, 128),   # widest head dim
     (1, 1024, 1024, 2, 128),  # d = 128: dynamic shared memory above 48 KB
     (1, 1024, 1024, 8, 80),  # UNet level 2
+    (1, 4032, 4032, 10, 64),  # SDXL at 1344x768: ragged query and key tiles
+    (1, 1008, 1008, 20, 64),
     (1, 4096, 4096, 2, 40),  # UNet level 1: d = 40 padded to the mma depth of 48
     (1, 256, 300, 4, 20),    # 40-byte head rows: staged element by element
     (2, 130, 77, 3, 7),      # odd head dim, ragged edges
@@ -257,6 +259,56 @@ def test_group_norm_cluster_path_at_census_widths(cuda, shape):
     _assert_close(got, want, None, TOL_BF16)
     solo = gn.fused_group_norm_silu(x[-1:].contiguous(), scale, bias, groups=32)
     assert torch.equal(got[-1:], solo)
+
+
+@pytest.mark.parametrize("shape", [
+    # the VAE encoder at 512x512: 128 channels at 512^2, then each level's
+    # first resnet on its input width (128 at 256^2, 256 at 128^2), then
+    # 256 at 256^2, 512 at 128^2 and 64^2
+    (1, 512, 512, 128), (1, 256, 256, 128), (1, 256, 256, 256), (1, 128, 128, 256),
+    (1, 128, 128, 512), (1, 64, 64, 512),
+    # at 1024x1024: twice the sizes
+    (1, 1024, 1024, 128), (1, 512, 512, 128), (1, 512, 512, 256), (1, 256, 256, 256),
+    (1, 256, 256, 512), (1, 128, 128, 512),
+])
+def test_group_norm_at_the_vae_encoder_widths(cuda, shape):
+    """bf16 GroupNorm+SiLU at the encoder's (channels, size) pairs against the
+    plain fp32 version."""
+    x = _randn(shape, torch.bfloat16, cuda, 9)
+    scale, bias = _gn_params(shape[-1], torch.bfloat16, cuda)
+    got = gn.fused_group_norm_silu(x, scale, bias, groups=32)
+    want = gn.group_norm_plain(x.float(), scale.float(), bias.float(), groups=32, silu=True)
+    _assert_close(got, want, None, TOL_BF16)
+
+
+def test_style_swap_in_place_under_a_captured_graph(cuda, tmp_path):
+    """A style written into the live weights reaches the bucket's captured
+    graph (the same PNG as the eager route with the style on), and
+    un-styling gives back the unstyled bytes."""
+    from dreamlab_tpu_torch import lora, testing
+    from dreamlab_tpu_torch.engine.base import GenSpec
+    from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
+    from dreamlab_tpu_torch.pipeline import LCMPipeline
+    from dreamlab_tpu_torch.utils.png import encode_png
+    from dreamlab_tpu_torch.utils.safetensors import save_file
+
+    pipe = LCMPipeline(testing.random_bundle(tiny=True, seed=3, device="cuda"))
+    path = str(tmp_path / "style.safetensors")
+    save_file(testing.random_lora(pipe.unet_params, rank=4, seed=5), path)
+    worker = CudaPipelineWorker(pipe, styles={"s": lora.StyleDef(name="s", path=path)})
+    spec = lambda style: GenSpec("a cat", size="64x64", num_inference_steps=2, seed=7,
+                                 style=style, style_level=0 if style is None else 4)
+    plain = worker.run_job_with_latents(spec(None))[0]  # captures the bucket
+    styled = worker.run_job_with_latents(spec("s"))[0]
+    assert len(pipe._compiled) == 1 and styled != plain
+    assert worker.run_job_with_latents(spec(None))[0] == plain
+    worker._apply_style("s", 4)
+    try:
+        eager = pipe._generate_eager("a cat", height=64, width=64, num_inference_steps=2,
+                                     seed=7)
+    finally:
+        worker._apply_style(None, 0)
+    assert encode_png(eager.images[0]) == styled
 
 
 def test_group_norm_at_2e31_values(cuda):

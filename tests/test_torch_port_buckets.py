@@ -3,7 +3,8 @@ JAX package's, on the CPU.
 
 On the CPU a bucket's program is the eager function, cached in
 ``_compiled`` under the JAX package's key (plus ``original_inference_steps``,
-whose schedule the port bakes into the program); on the card it is a
+whose schedule the port bakes into the txt2img program, and the task, as the
+JAX key has it); on the card it is a
 captured CUDA graph (chip_smoke.py). These are the JAX package's
 tests/test_pipeline.py checks of the cache (test_compile_cache_reuse) and of
 device RNG (test_device_rng_deterministic), on the port, with the JAX
@@ -44,15 +45,16 @@ def test_compile_cache_reuse(pipe):
     assert len(pipe._compiled) == n + 1
     pipe.generate("y", seed=1, **{**CALL, "width": 48}, original_inference_steps=25)
     assert len(pipe._compiled) == n + 2  # the schedule is baked into the program
-    assert (1, 16, 16, 2, "wcond", "host", None) in pipe._compiled
-    assert (1, 16, 24, 2, "wcond", "host", 25) in pipe._compiled
+    assert (1, 16, 16, 2, "wcond", "host", None, "txt2img") in pipe._compiled
+    assert (1, 16, 24, 2, "wcond", "host", 25, "txt2img") in pipe._compiled
 
 
 @pytest.mark.parametrize("batch", [1, 3])
 def test_warmup_creates_the_bucket_generate_uses(batch):
     pipe = LCMPipeline(random_bundle(tiny=True, seed=2), dtype=torch.float32, device="cpu")
     out = pipe.warmup(32, 32, steps=2, batch=batch)
-    assert list(pipe._compiled) == [out["key"]] == [(batch, 16, 16, 2, "wcond", "host", None)]
+    assert list(pipe._compiled) == [out["key"]] == [(batch, 16, 16, 2, "wcond", "host", None,
+                                                            "txt2img")]
     program = pipe._compiled[out["key"]]
     res = pipe.generate(["a cat"] * batch, seed=4, **CALL)
     assert list(pipe._compiled) == [out["key"]] and pipe._compiled[out["key"]] is program
@@ -102,7 +104,7 @@ def test_host_rng_bucket_matches_jax_with_row_guidance(tiny_ckpt):  # noqa: F811
     np.testing.assert_allclose(res.latents, np.asarray(jres.latents), rtol=1e-4, atol=1e-3)
     diff = np.abs(res.images.astype(np.int16) - np.asarray(jres.images).astype(np.int16))
     assert diff.max() <= 1 and (diff > 0).mean() < 0.01
-    assert list(port._compiled) == [(2, 16, 16, 2, "wcond", "host", None)]
+    assert list(port._compiled) == [(2, 16, 16, 2, "wcond", "host", None, "txt2img")]
 
 
 def test_eager_route_equals_the_bucket_program(pipe):
@@ -127,7 +129,7 @@ def test_constructing_a_pipeline_sets_the_deterministic_backends(monkeypatch):
 def test_worker_warmup_and_default_size():
     pipe = LCMPipeline(random_bundle(tiny=True, seed=2), dtype=torch.float32, device="cpu")
     worker = CudaPipelineWorker(pipe, 4, default_size=(48, 32), warmup=True)
-    assert list(pipe._compiled) == [(1, 16, 24, 4, "wcond", "host", None)]
+    assert list(pipe._compiled) == [(1, 16, 24, 4, "wcond", "host", None, "txt2img")]
     worker.run_job(GenSpec("a cat", size="48x32", num_inference_steps=4, seed=1))
     assert len(pipe._compiled) == 1
     cold = CudaPipelineWorker(LCMPipeline(random_bundle(tiny=True, seed=2),
@@ -139,6 +141,6 @@ def test_create_cuda_worker_warmup_size(tmp_path):
     ckpt = make_tiny_checkpoint(tmp_path / "ckpt")
     worker = create_cuda_worker(0, ckpt, dtype=torch.float32, device="cpu",
                                 warmup_size=(32, 16))
-    assert list(worker.pipeline._compiled) == [(1, 8, 16, 4, "wcond", "host", None)]
+    assert list(worker.pipeline._compiled) == [(1, 8, 16, 4, "wcond", "host", None, "txt2img")]
     assert not create_cuda_worker(1, ckpt, dtype=torch.float32,
                                   device="cpu").pipeline._compiled

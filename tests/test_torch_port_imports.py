@@ -1,5 +1,6 @@
 """Import hygiene: the port imports nothing of JAX and nothing of ``dreamlab_tpu``,
-and reads safetensors files without the ``safetensors`` package."""
+reads safetensors files without the ``safetensors`` package, and YAML
+without PyYAML."""
 
 import os
 import pkgutil
@@ -17,7 +18,9 @@ def test_importing_every_module_loads_no_jax():
         dreamlab_tpu_torch.__path__, "dreamlab_tpu_torch."))
     assert "dreamlab_tpu_torch.engine.cuda_worker" in mods
     assert "dreamlab_tpu_torch.scripts.ab_attention_layout" in mods
-    for new in ("loader", "engine.worker_factory", "utils.safetensors"):
+    for new in ("loader", "engine.worker_factory", "utils.safetensors", "lora",
+                "textual_inversion", "engine.styles", "engine.model_registry",
+                "utils.yaml_lite"):
         assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -29,7 +32,8 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'dreamlab_tpu' or m.startswith('dreamlab_tpu.')"
-        " or m == 'safetensors' or m.startswith('safetensors.'))\n"
+        " or m == 'safetensors' or m.startswith('safetensors.')"
+        " or m == 'yaml' or m.startswith('yaml.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -39,7 +43,8 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_name_no_jax_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml)(\.|\s|$)",
+                         re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "dreamlab_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]

@@ -227,7 +227,7 @@ def assert_bundles_equal(bundle, jax_bundle):
         assert (a is None) == (b is None), name
         if a is not None:
             assert dataclasses.asdict(a) == dataclasses.asdict(b), name
-    for name, jname in TREES:
+    for name, jname in TREES + [("vae_encoder_params", "vae_encoder_params")]:
         a, b = getattr(bundle, name), getattr(jax_bundle, jname)
         assert (a is None) == (b is None), name
         if a is not None:
@@ -245,8 +245,14 @@ def test_load_pipeline_sd15_matches_jax_loader(tmp_path, caplog):
         bundle = loader.load_pipeline(ckpt, device="cpu")
     assert bundle.model_dir == ckpt and bundle.tokenizer_2 is None
     assert_bundles_equal(bundle, jloader.load_pipeline(ckpt))
-    # the VAE encoder's tensors wait for the img2img slice: reported, not dropped silently
+    # the VAE encoder's tensors are read on request only: reported, not dropped silently
     assert any("vae" in r.getMessage() and "encoder." in r.getMessage() for r in caplog.records)
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="dreamlab_tpu_torch.loader"):
+        bundle = loader.load_pipeline(ckpt, device="cpu", load_vae_encoder=True)
+    assert bundle.vae_encoder_params is not None
+    assert_bundles_equal(bundle, jloader.load_pipeline(ckpt, load_vae_encoder=True))
+    assert not any("encoder." in r.getMessage() for r in caplog.records)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ their solo runs with oneDNN on (its conv algorithm depends on the batch).
 
 import dataclasses
 import io
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -247,8 +248,9 @@ def test_create_cuda_worker_serves_the_in_memory_bundle(tmp_path):
 
 def test_create_cuda_worker_refuses_what_later_slices_bring(sdxl_dir, tmp_path, monkeypatch):
     """A LoRA or a ControlNet cannot serve alone (WorkerCreationError, as in
-    the reference); mode LoRAs, embeddings, attached ControlNets and the
-    refiner come with later slices (ValueError)."""
+    the reference); attached ControlNets and the refiner come with a later
+    slice (ValueError); mode LoRAs and embeddings are served, and a file
+    that cannot be read warns and is skipped, as in the reference."""
     path = str(tmp_path / "style.safetensors")
     save_file({"lora_unet_down_blocks_0_attn1_to_q.lora_down.weight": torch.zeros(4, 8)}, path)
     with pytest.raises(WorkerCreationError, match="LoRA"):
@@ -257,10 +259,13 @@ def test_create_cuda_worker_refuses_what_later_slices_bring(sdxl_dir, tmp_path, 
     (tmp_path / "controlnet" / "config.json").write_text('{"_class_name": "ControlNetModel"}')
     with pytest.raises(WorkerCreationError, match="ControlNet"):
         create_cuda_worker(0, str(tmp_path / "controlnet"), device="cpu")
-    for kw in (dict(loras=["x.safetensors"]), dict(embeddings=["e"]),
-               dict(controlnet="cn"), dict(refiner="r")):
+    for kw in (dict(controlnet="cn"), dict(refiner="r")):
         with pytest.raises(ValueError, match="not served yet"):
             create_cuda_worker(0, sdxl_dir, device="cpu", **kw)
+    missing = types.SimpleNamespace(file=str(tmp_path / "x.safetensors"), strength=1.0)
+    worker = create_cuda_worker(0, sdxl_dir, dtype=torch.float32, device="cpu",
+                                loras=[missing], embeddings=[missing.file])
+    assert worker.pipeline.vae_encoder_params is not None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_cuda_worker(0, sdxl_dir)

@@ -189,8 +189,10 @@ def test_sdxl_single_file_matches_jax(tmp_path, make, caplog):
         assert bundle.text_params_2 is None and bundle.tokenizer.pad_id == 0
     else:
         assert bundle.tokenizer_2.pad_id == 0 and bundle.vae_cfg.block_out_channels == (32, 64)
-        # the VAE encoder's tensors wait for the img2img slice: reported, not dropped silently
-        assert any("encoder." in r.getMessage() for r in caplog.records)
+        # the VAE encoder is read, as the JAX package reads it (assert_bundles_equal
+        # held it leaf by leaf), and no tensor is left unconverted
+        assert bundle.vae_encoder_params is not None
+        assert not any("encoder." in r.getMessage() for r in caplog.records)
     _assert_generate_matches_jax(bundle, jax_bundle, aesthetic_score=6.5)
 
 

@@ -93,7 +93,9 @@ def test_batchable_and_unsupported_features(worker):
     assert not worker.batchable(a, GenSpec("b", size="32x32"))
     assert not worker.batchable(a, GenSpec("b", size="16x16", num_inference_steps=2))
     assert not worker.batchable(a, GenSpec("b", size="16x16", progress_cb=print))
+    # a style at level 0 is off (the reference's parse_style_request); at a
+    # level, a style the worker does not have is refused
     with pytest.raises(ValueError, match="unknown style"):
-        worker.run_job(GenSpec("a", size="16x16", style="anime"))
+        worker.run_job(GenSpec("a", size="16x16", style="anime", style_level=3))
     with pytest.raises(ValueError):
         worker.run_jobs([a, GenSpec("b", size="32x32")])
