@@ -55,6 +55,19 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    0.75, inpainting keeps the encoded latents outside the mask), p50 over
    10 requests, a profiled replay (txt2img's flash census, its GroupNorm
    census plus the encoder's);
+7b. ControlNet and progress (SD1.5, 512², ``wcond``): SD1.5 in fp16 as a
+   diffusers directory and a full-width ControlNet (the SD1.5 trunk without
+   cond_proj, hint ladder 16/32/96/256, non-zero taps, seeded random
+   weights) as a ControlNet directory, served by
+   ``create_cuda_worker(controlnet=)``. A census on the eager route (56
+   flash, 289 GroupNorm), every shape checked and timed; counts reset, the
+   ctrl and plain buckets captured; the same seed twice, scale 0 = the plain
+   request, graph = eager, p50 over 10 ControlNet requests beside 10 plain
+   ones, a profiled replay; a net of the same config written into the live
+   leaves (same graph) = a fresh pipeline with that net. Then progress on
+   the same worker (counts reset): steps 0-3 with the schedule's
+   timesteps, the PNG = the callback-free one's, per-step latents = the
+   eager route's, when each step arrived, p50 beside callback-free;
 8. SDXL phase: SDXL at full width (two text towers, ``text_time``
    micro-conditioning), seeded random bf16 weights drawn on the card, 1024x1024,
    4 steps. A census of one request on the eager route (280 flash, 169
@@ -75,6 +88,15 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    new shapes checked, K1's timed; three replays and the eager route
    byte-identical; the tiled decode's ms and peak memory beside the
    full-frame decode's); one ``{"sdxl": {...}}`` line;
+8b. ensemble phase: SDXL base and the full-width SDXL refiner (seeded
+   random bf16 weights drawn on the card) in one worker, 1024², 4 steps,
+   switch 0.8 (base [0, 3), refiner [3, 4)). A census on the eager route
+   (254 flash, 179 GroupNorm), each kernel checked and timed at the refiner
+   segment's shapes; counts reset, both segment buckets captured on the
+   first request, 3 timed requests (a repeat: the same bytes), graph =
+   eager, the carry an fp32 card tensor, a profiled replay, the peak memory
+   with both pipelines resident, capture seconds and bytes per bucket; the
+   base's (0, 3) then (3, 4) = its 4-step run, byte for byte;
 9. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
    ``kernel_call`` at lanes 40 and 128, K6 ``flash_attention_packed3``) in
    fp32 against their plain versions at the probes' full shapes, then runs
@@ -87,7 +109,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
 10. prints the run's seconds (``{"total_s": ...}``), the ``{"kernels": [...]}``
    line (each kernel on the SD1.5 main path, then on the SDXL path with a
    ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
-   ``_encoder_sdxl``), K1 at 1344x768, then the probes' kernels), and last
+   ``_encoder_sdxl``), K1 at 1344x768, K1 and K2+K3 on the ControlNet path
+   (``_controlnet``) and at the refiner segment's shapes (``_refiner``),
+   then the probes' kernels), and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -123,12 +147,16 @@ from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
-from dreamlab_tpu_torch.pipeline import LCMPipeline
+from dreamlab_tpu_torch.pipeline import LCMPipeline, _flat
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
 from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
                                                max_err)
-from dreamlab_tpu_torch.testing import (cast_params, random_bundle, random_lora,
-                                        write_diffusers_dir, write_single_file)
+from dreamlab_tpu_torch.testing import (CONTROLNET_COND_CHANNELS, SD15_CONTROLNET,
+                                        cast_params, cast_tree, random_bundle,
+                                        random_controlnet,
+                                        random_lora, random_refiner_bundle,
+                                        write_controlnet_dir, write_diffusers_dir,
+                                        write_single_file)
 from dreamlab_tpu_torch.utils.png import encode_png
 from dreamlab_tpu_torch.utils.safetensors import save_file
 
@@ -164,6 +192,18 @@ CAPTURE_RUNS = 2
 # UNet call; 35 GroupNorm+SiLU calls per UNet call (17 resnets x 2 + norm_out)
 # and 29 in the VAE decode; 4 steps; the cfg mode's doubled batch launches the same
 XL_PER_REQUEST = {"flash": 4 * 70, "gn": 4 * 35 + 29}
+# a ControlNet request (SD1.5, 512², wcond): each UNet call adds the trunk's
+# 4 flash sites (2 at 4096 tokens, 2 at 1024) and 20 GroupNorm+SiLU calls
+# (10 resnets); the hint ladder has none
+CN_PER_REQUEST = {"flash": 40 + 4 * 4, "gn": 209 + 4 * 20}
+CN_SAMPLES = 10  # ControlNet requests timed, and as many plain ones beside them
+PROGRESS_SAMPLES = 10  # progress requests timed, and as many callback-free ones
+# an ensemble request (SDXL 1024², 4 steps, switch 0.8): 3 base steps, one
+# refiner step (20 flash sites at 4096 tokens, 20 at 1024, 4 at 256; 22
+# resnets and norm_out) and the refiner's VAE decode
+SWITCH_AT = 0.8
+ENSEMBLE_PER_REQUEST = {"flash": 3 * 70 + 44, "gn": 3 * 35 + 45 + 29}
+ENSEMBLE_SAMPLES = 3
 FAILURES = []
 
 
@@ -411,6 +451,14 @@ def census(pipe, size: int = SIZE, run=None) -> collections.Counter:
     return seen
 
 
+def per_request_of(seen) -> dict:
+    """Launches per request of a census: one per flash and per GroupNorm call
+    (the fused launch counts once in gn, gn_stats and gn_apply)."""
+    gn_calls = sum(c for k, c in seen.items() if k[0] == "gn")
+    return {"flash": sum(c for k, c in seen.items() if k[0] == "flash"), "gn": gn_calls,
+            "gn_stats": gn_calls, "gn_apply": gn_calls}
+
+
 def time_kernels(seen, dtype, errs) -> dict:
     """Each census shape: the kernel against its plain version, then timed
     (per-request totals: each shape's time times its count in ``seen``)."""
@@ -553,7 +601,9 @@ def counts() -> dict:
 def bucket_stats(pipe) -> list:
     """Each captured bucket of ``pipe``: its key, capture seconds and the bytes
     it added to the pipeline's graph pool."""
-    return [{"key": list(key), "capture_s": p.capture_s, "reserved_bytes": p.reserved_bytes}
+    return [{"key": list(key[:8]) + [f"{name}={'config' if name == 'ctrl' else value}"
+                                     for name, value in key[8:]],
+             "capture_s": p.capture_s, "reserved_bytes": p.reserved_bytes}
             for key, p in pipe._compiled.items()]
 
 
@@ -924,7 +974,7 @@ def styles_path(worker, styles, per_request) -> dict:
     registry = get_model_registry()
     entries = {m.name: m.hbm_bytes for m in registry.list_models()}
     touched = sum(t.numel() * t.element_size() for t in worker._base.values())
-    unet = sum(t.numel() * t.element_size() for t in leaves(pipe.unet_params))
+    unet = sum(t.numel() * t.element_size() for t in _flat(pipe.unet_params).values())
     expect(entries.get(next((n for n in entries if n.startswith("lora-base:")), ""))
            == touched, f"registry entries {entries} miss the base copies' {touched} bytes")
     return {"launches": launched, "first_merge_ms": first_ms, "lora_file_read_ms": read_ms,
@@ -937,17 +987,6 @@ def styles_path(worker, styles, per_request) -> dict:
             "merged_vs_cpu_fp32": merged, "styled_equals_eager": eager == a1,
             "replay_port_kernels": prof["port_kernels"],
             "replay_kernel_ms": prof["device_busy_ms"], "path_s": time.perf_counter() - t0}
-
-
-def leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from leaves(v)
-    else:
-        yield tree
 
 
 def encoder_gn_calls(cfg) -> int:
@@ -1080,6 +1119,216 @@ def sd15_extras_phase(per_request, txt_seen) -> tuple:
     line = {"sd15_extras": {"card": smi_line(), "setup_s": setup_s, "freed_bytes": freed,
                             "phase_s": time.perf_counter() - t0}}
     return rows, launched, errs, line
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: ControlNet and progress callbacks at SD1.5's 512x512
+# ---------------------------------------------------------------------------
+
+
+def times_of(fns: dict, samples: int) -> dict:
+    """{name: [ms, ...]} over ``samples`` rounds, the functions taking turns."""
+    out = {name: [] for name in fns}
+    for _ in range(samples):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            out[name].append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def ctrl_keys(pipe) -> list:
+    return [k for k in pipe._compiled if "ctrl" in dict(k[8:])]
+
+
+def controlnet_path(worker, bundle, net_b, hint, per_request) -> tuple:
+    """The ControlNet path on the worker ``create_cuda_worker`` built with
+    the mode's net: a census on the eager route (56 flash, 289 GroupNorm),
+    each kernel checked and timed at its shapes; then, counts reset, the
+    ctrl bucket and the plain bucket captured on their first requests, the
+    same seed twice, scale 0 against the plain request, graph against
+    eager, p50 over CN_SAMPLES requests beside as many plain ones, a
+    profiled replay, and a net of the same config written into the live
+    leaves (the same graph) against a fresh pipeline with that net.
+    Returns (rows, launches, errs, the line)."""
+    pipe = worker.pipeline
+    errs = collections.defaultdict(float)
+    prompt, seed = "a lighthouse on a cliff", 81
+    call = dict(height=SIZE, width=SIZE, num_inference_steps=STEPS)
+    spec = lambda **kw: GenSpec(prompt, size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
+                                seed=kw.pop("seed", seed), **{"control_image": hint, **kw})
+    seen = census(pipe, run=lambda: pipe._generate_eager(prompt, control_image=hint, seed=seed,
+                                                         **call))
+    cn_request = per_request_of(seen)
+    log({"controlnet_census": [[list(k[1]), k[2], n] for k, n in sorted(seen.items())],
+         "launches_per_request": cn_request})
+    expect(cn_request["flash"] == CN_PER_REQUEST["flash"]
+           and cn_request["gn"] == CN_PER_REQUEST["gn"],
+           f"ControlNet census {cn_request}, expected {CN_PER_REQUEST}")
+    t0 = time.perf_counter()
+    rows = time_kernels(seen, torch.bfloat16, errs)
+    timing_s = time.perf_counter() - t0
+    end_phase("controlnet census")
+
+    png = lambda sp: worker.run_job_with_latents(sp)[0]  # no metadata: comparable bytes
+    t0 = time.perf_counter()
+    reset_counts()
+    first = png(spec())  # captures the ctrl bucket
+    first_s = time.perf_counter() - t0
+    again = png(spec())
+    plain = png(spec(control_image=None))  # captures the plain bucket
+    zero = png(spec(controlnet_scale=0.0))
+    launched = counts()
+    want = {k: CAPTURE_RUNS * (cn_request[k] + per_request[k]) for k in cn_request}
+    expect(launched == want, f"the ControlNet path launched {launched}, expected the ctrl and "
+                             f"plain buckets' captures {want}")
+    check_png(first)
+    expect(again == first, "ControlNet: the same seed gave other bytes")
+    expect(first != plain, "ControlNet: the hint changed nothing")
+    expect(zero == plain, "ControlNet: scale 0 differs from the plain request")
+    eager = encode_png(pipe._generate_eager(prompt, control_image=hint, seed=seed,
+                                            **call).images[0])
+    expect(eager == first, "ControlNet: the graph's PNG differs from the eager route's")
+    lat = times_of({"controlnet": lambda: png(spec(seed=seed + 1)),
+                    "plain": lambda: png(spec(seed=seed + 1, control_image=None))}, CN_SAMPLES)
+    prof = profile(lambda: png(spec()))
+    want_kernels = {"flash_mma_kernel": cn_request["flash"],
+                    "gn_cluster_kernel": cn_request["gn"]}
+    expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
+           f"a profiled ControlNet replay ran {prof['port_kernels']}, expected {want_kernels}")
+    # replays go through no wrapper; the eager route above did, once
+    expect(counts() == {k: launched[k] + cn_request[k] for k in launched},
+           f"ControlNet replays went through the wrappers: {counts()} after {launched}")
+
+    # another net of the same config: written into the leaves the graph reads
+    keys, programs = ctrl_keys(pipe), dict(pipe._compiled)
+    pipe.set_controlnet(net_b, SD15_CONTROLNET)
+    same_graph = ctrl_keys(pipe) == keys and all(pipe._compiled[k] is programs[k] for k in keys)
+    expect(same_graph, "re-attaching a net of the same config replaced the ctrl bucket")
+    second = png(spec())
+    fresh = LCMPipeline(bundle)
+    fresh.set_controlnet(net_b, SD15_CONTROLNET)
+    fresh_png = encode_png(fresh.generate(prompt, control_image=hint, seed=seed,
+                                          **call).images[0])
+    del fresh
+    torch.cuda.empty_cache()
+    expect(second != first, "the second net changed nothing")
+    expect(second == fresh_png, "the re-attached net's PNG differs from a fresh pipeline's")
+    line = {"card": smi_line(), "launches": launched, "per_request": cn_request,
+            "first_request_s": first_s, "p50_ms": statistics.median(lat["controlnet"]),
+            "min_ms": min(lat["controlnet"]), "max_ms": max(lat["controlnet"]),
+            "latency_ms": lat["controlnet"], "plain_p50_ms": statistics.median(lat["plain"]),
+            "plain_latency_ms": lat["plain"], "profile_replay": prof,
+            "kernel_ms_per_request": prof["device_busy_ms"],
+            "scale0_equals_plain": zero == plain, "graph_equals_eager": eager == first,
+            "reattach_same_graph": same_graph, "reattach_equals_fresh": second == fresh_png,
+            "buckets": [b for b in bucket_stats(pipe) if "ctrl" in str(b["key"])],
+            "flash_per_request_ms": rows["flash"], "gn_per_request_ms": rows["gn"],
+            "timing_s": timing_s}
+    return rows, launched, errs, line
+
+
+def progress_path(worker, per_request) -> dict:
+    """Progress on the ControlNet phase's worker (counts reset): a request
+    with ``progress_cb`` (steps 0-3 in order with the schedule's timesteps,
+    the PNG equal to the callback-free request's), ``generate`` with
+    ``callback_latents=True`` (each step's latents equal the eager route's,
+    the image the plain one's), the host ms at which each step arrived, and
+    p50 over PROGRESS_SAMPLES requests beside as many callback-free ones."""
+    pipe = worker.pipeline
+    prompt, seed = "a harbour at night", 91
+    call = dict(height=SIZE, width=SIZE, num_inference_steps=STEPS, seed=seed)
+    spec = GenSpec(prompt, size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS, seed=seed)
+    timesteps = [int(t) for t in pipe._schedule(STEPS, None).timesteps]
+    reset_counts()
+    steps = []
+    t0 = time.perf_counter()
+    png_cb = worker.run_job_with_latents(dataclasses.replace(
+        spec, progress_cb=lambda i, t: steps.append((i, t))))[0]  # captures the steps bucket
+    first_s = time.perf_counter() - t0
+    png_plain = worker.run_job_with_latents(spec)[0]  # the plain bucket: a replay
+    expect(steps == list(enumerate(timesteps)), f"progress steps {steps}, expected "
+                                                f"{list(enumerate(timesteps))}")
+    expect(png_cb == png_plain, "a progress request's PNG differs from the callback-free one's")
+    lat_steps, arrival = [], []
+    t0 = time.perf_counter()
+
+    def on_step(i, t, lat):
+        arrival.append(1e3 * (time.perf_counter() - t0))
+        lat_steps.append((i, t, lat))
+
+    res = pipe.generate(prompt, callback=on_step, **call)  # captures the latents bucket
+    replay_steps, replay_arrival = [], []
+    t0 = time.perf_counter()
+    res2 = pipe.generate(prompt, callback=lambda i, t, lat: (
+        replay_arrival.append(1e3 * (time.perf_counter() - t0)), replay_steps.append(lat)),
+        **call)
+    replay_ms = 1e3 * (time.perf_counter() - t0)
+    launched = counts()
+    want = {k: 2 * CAPTURE_RUNS * v for k, v in per_request.items()}
+    expect(launched == want, f"the progress path launched {launched}, expected two buckets' "
+                             f"captures {want}")
+    eager_steps = []
+    pipe._generate_eager(prompt, callback=lambda i, t, lat: eager_steps.append((i, t, lat)),
+                         **call)
+    lat_delta = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(lat_steps, eager_steps))
+    expect([s[:2] for s in lat_steps] == [s[:2] for s in eager_steps] == list(enumerate(
+        timesteps)), "per-step latents: steps or timesteps differ from the eager route's")
+    expect(lat_delta == 0.0, f"per-step latents differ from the eager route's by {lat_delta}")
+    expect(all(np.array_equal(a, b[2]) for a, b in zip(replay_steps, lat_steps)),
+           "a replay's per-step latents differ from the capture's request")
+    expect(encode_png(res.images[0]) == png_plain and np.array_equal(res2.images, res.images),
+           "the latents bucket's image differs from the plain one")
+    cb_spec = dataclasses.replace(spec, progress_cb=lambda i, t: None)
+    lat = times_of({"progress": lambda: worker.run_job_with_latents(cb_spec),
+                    "plain": lambda: worker.run_job_with_latents(spec)}, PROGRESS_SAMPLES)
+    return {"launches": launched, "steps": steps, "first_request_s": first_s,
+            "latents_vs_eager_max_abs": lat_delta,
+            "step_arrival_ms_first_request": arrival, "step_arrival_ms_replay": replay_arrival,
+            "latents_replay_ms": replay_ms,
+            "p50_ms": statistics.median(lat["progress"]), "latency_ms": lat["progress"],
+            "plain_p50_ms": statistics.median(lat["plain"]), "plain_latency_ms": lat["plain"],
+            "buckets": [b for b in bucket_stats(pipe) if "progress" in str(b["key"])]}
+
+
+def controlnet_phase(per_request) -> tuple:
+    """Phase 7b. SD1.5 at full width in fp16 as a diffusers directory and a
+    full-width ControlNet (``SD15_CONTROLNET``: the SD1.5 trunk without
+    cond_proj, hint ladder 16/32/96/256, non-zero taps, seeded random
+    weights drawn on the card, fp16) as a ControlNet directory, served by
+    ``create_cuda_worker(controlnet=)``; the ControlNet path, then the
+    progress path on the same worker, each with its counts reset. Returns
+    (rows, launches, errs, the line)."""
+    t0 = time.perf_counter()
+    bundle = cast_params(random_bundle(seed=0, device="cuda"), torch.float16)
+    nets = [cast_tree(random_controlnet(SD15_CONTROLNET, seed=s,
+                                               cond_channels=CONTROLNET_COND_CHANNELS,
+                                               device="cuda"), torch.float16)
+            for s in (11, 12)]
+    hint = test_image(SIZE, SIZE, 80)
+    with tempfile.TemporaryDirectory(prefix="dreamlab_cn_") as root:
+        ckpt = write_diffusers_dir(bundle, os.path.join(root, "sd15"))
+        cn_dir = write_controlnet_dir(nets[0], SD15_CONTROLNET, os.path.join(root, "cn"))
+        t1 = time.perf_counter()
+        worker = create_cuda_worker(0, ckpt, controlnet=types.SimpleNamespace(file=cn_dir,
+                                                                               scale=1.0))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+    expect(worker.pipeline.controlnet_cfg == SD15_CONTROLNET and worker.controlnet_scale == 1.0,
+           "create_cuda_worker(controlnet=) did not attach the mode's ControlNet")
+    end_phase("controlnet load")
+    setup_s = time.perf_counter() - t0
+    rows, launched, errs, line = controlnet_path(worker, bundle, nets[1], hint, per_request)
+    log({"controlnet": line})
+    end_phase("controlnet")
+    progress = progress_path(worker, per_request)
+    log({"progress": progress})
+    end_phase("progress")
+    del bundle, nets
+    freed = delete_pipeline(worker)
+    return rows, launched, errs, {"controlnet_phase": {
+        "card": smi_line(), "setup_s": setup_s, "load_s": load_s, "freed_bytes": freed,
+        "phase_s": time.perf_counter() - t0}}
 
 
 # ---------------------------------------------------------------------------
@@ -1315,9 +1564,7 @@ def sdxl_phase(errs) -> tuple:
     worker = CudaPipelineWorker(pipe)
     setup_s = time.perf_counter() - t0
     seen = census(pipe, XL_SIZE)
-    gn_calls = sum(c for k, c in seen.items() if k[0] == "gn")
-    per_request = {"flash": sum(c for k, c in seen.items() if k[0] == "flash"),
-                   "gn": gn_calls, "gn_stats": gn_calls, "gn_apply": gn_calls}
+    per_request = per_request_of(seen)
     log({"sdxl_setup_s": setup_s, "launches_per_request": per_request,
          "census": [[list(k[1]), k[2], n] for k, n in sorted(seen.items())]})
     want = {"flash": XL_PER_REQUEST["flash"], "gn": XL_PER_REQUEST["gn"],
@@ -1430,6 +1677,121 @@ def sdxl_phase(errs) -> tuple:
     line["sdxl"]["freed_bytes_on_delete"] = delete_pipeline(worker)
     return (rows, launches, line, (i2i_rows, i2i_launches, i2i_errs),
             (t_rows, t_launches, t_errs))
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the SDXL base -> refiner ensemble at 1024x1024
+# ---------------------------------------------------------------------------
+
+
+def ensemble_phase() -> tuple:
+    """Phase 8b. SDXL base and the SDXL refiner (``SDXL_REFINER_UNET``, one
+    bigG tower, the SDXL VAE), both at full width with seeded random bf16
+    weights drawn on the card, in a CudaPipelineWorker with the refiner at
+    switch 0.8: 4 steps run as base [0, 3) and refiner [3, 4). A census of
+    one request on the eager route (254 flash, 179 GroupNorm); each kernel
+    checked and timed at the refiner segment's shapes; then, counts reset,
+    the two segment buckets captured on the first request, ENSEMBLE_SAMPLES
+    requests (one a repeat: the same bytes), the graph against the eager
+    route, the carry a card tensor, a profiled replay, the peak memory with
+    both pipelines resident; and on the base alone (0, 3) then (3, 4)
+    against its 4-step run, byte for byte. Returns (rows, launches, errs,
+    the line)."""
+    t0 = time.perf_counter()
+    errs = collections.defaultdict(float)
+    base = LCMPipeline(random_bundle("sdxl", seed=0, device="cuda"))
+    refiner = LCMPipeline(random_refiner_bundle(seed=1, device="cuda"))
+    torch.cuda.empty_cache()
+    worker = CudaPipelineWorker(base, refiner=refiner, refiner_switch_at=SWITCH_AT)
+    setup_s = time.perf_counter() - t0
+    k = min(max(int(round(STEPS * SWITCH_AT)), 1), STEPS - 1)
+    prompt, seed = "a castle on a hill at dawn", 101
+    call = dict(height=XL_SIZE, width=XL_SIZE, num_inference_steps=STEPS)
+    spec = lambda s: GenSpec(prompt, size=f"{XL_SIZE}x{XL_SIZE}", num_inference_steps=STEPS,
+                             seed=s)
+
+    def eager(s=seed):
+        carry = base._generate_eager(prompt, segment=(0, k), seed=s, **call).state_device
+        return refiner._generate_eager(prompt, segment=(k, STEPS), latents_state=carry,
+                                       seed=s, **call)
+
+    seen = census(base, run=eager)
+    ens_request = per_request_of(seen)
+    carry = base._generate_eager(prompt, segment=(0, k), seed=seed, **call).state_device
+    ref_seen = census(refiner, run=lambda: refiner._generate_eager(
+        prompt, segment=(k, STEPS), latents_state=carry, seed=seed, **call))
+    log({"ensemble_census": [[list(c[1]), c[2], n] for c, n in sorted(seen.items())],
+         "refiner_census": [[list(c[1]), c[2], n] for c, n in sorted(ref_seen.items())],
+         "launches_per_request": ens_request})
+    expect(ens_request["flash"] == ENSEMBLE_PER_REQUEST["flash"]
+           and ens_request["gn"] == ENSEMBLE_PER_REQUEST["gn"],
+           f"ensemble census {ens_request}, expected {ENSEMBLE_PER_REQUEST}")
+    t1 = time.perf_counter()
+    rows = time_kernels(ref_seen, torch.bfloat16, errs)
+    timing_s = time.perf_counter() - t1
+    end_phase("ensemble census")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    first = worker.run_job_with_latents(spec(seed))[0]  # captures both segment buckets
+    first_s = time.perf_counter() - t1
+    launched = counts()
+    want = {c: CAPTURE_RUNS * v for c, v in ens_request.items()}
+    expect(launched == want, f"the ensemble path launched {launched}, expected the two "
+                             f"segment buckets' captures {want}")
+    check_png(first, XL_SIZE)
+    latency = []
+    for s in [seed] + [seed + 1 + i for i in range(ENSEMBLE_SAMPLES - 1)]:
+        t1 = time.perf_counter()
+        out = worker.run_job_with_latents(spec(s))[0]
+        latency.append(1e3 * (time.perf_counter() - t1))
+        if s == seed:
+            expect(out == first, "ensemble: the same seed gave other bytes")
+    peak = torch.cuda.max_memory_allocated()
+    expect(counts() == launched, f"ensemble replays went through the wrappers: {counts()}")
+    eager_png = encode_png(eager().images[0])
+    expect(eager_png == first, "ensemble: the graph's PNG differs from the eager route's")
+    handoff = base.generate(prompt, segment=(0, k), seed=seed, **call)
+    on_card = (handoff.images is None and handoff.latents is None
+               and isinstance(handoff.state_device, torch.Tensor)
+               and handoff.state_device.is_cuda
+               and handoff.state_device.dtype == torch.float32)
+    expect(on_card, "the base segment's carry is not an fp32 card tensor")
+    prof = profile(lambda: worker.run_job_with_latents(spec(seed)))
+    want_kernels = {"flash_mma_kernel": ens_request["flash"],
+                    "gn_cluster_kernel": ens_request["gn"]}
+    expect({c: prof["port_kernels"].get(c, 0) for c in want_kernels} == want_kernels,
+           f"a profiled ensemble replay ran {prof['port_kernels']}, expected {want_kernels}")
+    buckets = {"base": bucket_stats(base), "refiner": bucket_stats(refiner)}
+
+    # the base alone: its segments against its 4-step run
+    full = base.generate(prompt, seed=seed, **call)
+    head = base.generate(prompt, segment=(0, k), seed=seed, **call)
+    tail = base.generate(prompt, segment=(k, STEPS), latents_state=head.state_device,
+                         seed=seed, **call)
+    bitmatch = (np.array_equal(tail.images, full.images)
+                and np.array_equal(tail.latents, full.latents))
+    expect(bitmatch, "the base's (0, 3) then (3, 4) differ from its 4-step run")
+    line = {"ensemble": {
+        "card": smi_line(), "host_cpu": host_cpu(), "size": XL_SIZE, "steps": STEPS,
+        "switch_at": SWITCH_AT, "segments": [[0, k], [k, STEPS]], "setup_s": setup_s,
+        "launches": launched, "per_request": ens_request, "first_request_s": first_s,
+        "p50_ms": statistics.median(latency), "latency_ms": latency,
+        "kernel_ms_per_request": prof["device_busy_ms"],
+        "kernel_launches_per_request": prof["kernel_launches"],
+        "busy_share": prof["busy_share"], "port_kernels": prof["port_kernels"],
+        "graph_equals_eager": eager_png == first, "carry_on_card": on_card,
+        "base_segments_equal_full_run": bitmatch, "buckets": buckets,
+        "peak_memory_bytes_both_resident": peak,
+        "refiner_flash_per_request_ms": rows["flash"], "refiner_gn_per_request_ms": rows["gn"],
+        "timing_s": timing_s}}
+    del base, refiner, eager
+    worker.refiner = None
+    line["ensemble"]["freed_bytes_on_delete"] = delete_pipeline(worker)
+    line["ensemble"]["phase_s"] = time.perf_counter() - t0
+    return rows, launched, errs, line
 
 
 def delete_pipeline(worker) -> int:
@@ -1589,7 +1951,10 @@ def smi_line() -> str:
 def kernel_entries(rows, launches, errs, suffix="",
                    keys=("flash", "gn_stats", "gn_apply", "gn")) -> list:
     """The kernels line's entries of one path: K1, and K2, K3 and K2+K3 (the
-    fused call the paths run; K2 and K3 alone are checked at fixed shapes)."""
+    fused call the paths run; K2 and K3 alone are checked at fixed shapes).
+    ``launches`` counts every launch of the path's run (its warm runs and
+    captures, of all its buckets); ``launches_per_request`` counts those of
+    one request at the shapes the entry's times add up."""
     sources = {
         "flash": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
                   "dreamlab_tpu/ops/flash_attention.py:52"),
@@ -1609,6 +1974,7 @@ def kernel_entries(rows, launches, errs, suffix="",
         kernels.append({
             "name": names.get(name, name) + suffix, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            "launches_per_request": int(r["launches_per_request"]),
             "max_abs_err": errs[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["bound_operations_ms"] > r["bound_bytes_ms"]
@@ -1649,11 +2015,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     worker = CudaPipelineWorker(pipe)
     seen = census(pipe)
-    # one kernel launch per flash and per GroupNorm call (the fused launch
-    # counts once in gn, gn_stats and gn_apply)
-    gn_calls = sum(c for k, c in seen.items() if k[0] == "gn")
-    per_request = {"flash": sum(c for k, c in seen.items() if k[0] == "flash"),
-                   "gn": gn_calls, "gn_stats": gn_calls, "gn_apply": gn_calls}
+    per_request = per_request_of(seen)
     log({"setup_s": time.perf_counter() - t0, "launches_per_request": per_request})
     expect(per_request == {"flash": 40, "gn": 209, "gn_stats": 209, "gn_apply": 209},
            f"census {per_request}, expected 40 flash and 209 GroupNorm launches")
@@ -1710,12 +2072,19 @@ def main() -> int:
     enc_rows, enc_launches, enc_errs, extras_line = sd15_extras_phase(per_request, seen)
     log(extras_line)
 
+    cn_rows, cn_launches, cn_errs, cn_line = controlnet_phase(per_request)
+    log(cn_line)
+
     t0 = time.perf_counter()
     xl_errs = collections.defaultdict(float)
     xl_rows, xl_launches, xl_line, xl_i2i, xl_tiles = sdxl_phase(xl_errs)
     end_phase("sdxl")
     xl_line["sdxl"]["phase_s"] = time.perf_counter() - t0
     log(xl_line)
+
+    ens_rows, ens_launches, ens_errs, ens_line = ensemble_phase()
+    end_phase("ensemble")
+    log(ens_line)
 
     probe_entries, probe_line = probes(errs)
     log(probe_line)
@@ -1725,7 +2094,9 @@ def main() -> int:
                + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn"))
                + kernel_entries(enc_rows, enc_launches, enc_errs, "_encoder", ("gn",))
                + kernel_entries(*xl_i2i, "_encoder_sdxl", ("gn",))
-               + kernel_entries(*xl_tiles, "_sdxl_1344x768", ("flash",)))
+               + kernel_entries(*xl_tiles, "_sdxl_1344x768", ("flash",))
+               + kernel_entries(cn_rows, cn_launches, cn_errs, "_controlnet", ("flash", "gn"))
+               + kernel_entries(ens_rows, ens_launches, ens_errs, "_refiner", ("flash", "gn")))
     log({"kernels": kernels + probe_entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

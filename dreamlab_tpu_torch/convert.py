@@ -2,9 +2,11 @@
 
 ``from_jax_numpy`` takes trees in the schema of the JAX package's
 ``clip_text.init_params`` / ``unet.init_params`` / ``vae.init_decoder_params``
-/ ``vae.init_encoder_params`` (as loaded by its ``load_pipeline``), with
-numpy leaves (``np.asarray`` of
-each JAX array), and returns the same trees as torch tensors in the port's
+/ ``vae.init_encoder_params`` / ``controlnet.init_params`` (as loaded by its
+``load_pipeline`` and ``load_controlnet``; a ControlNet's hint ladder and
+zero-conv taps are lists of convs, converted as every conv is), with numpy
+leaves (``np.asarray`` of each JAX array), and returns the same trees as
+torch tensors in the port's
 layout: conv kernels HWIO -> OIHW, linear kernels ``[in, out]`` ->
 ``[out, in]``, embeddings unchanged. With it both packages compute the same
 function on the same weights, which is what the tests compare.
@@ -38,5 +40,6 @@ def _convert(tree, parent: str = ""):
 
 
 def from_jax_numpy(tree):
-    """Convert one parameter tree (text, UNet, VAE decoder or encoder) to the port's layout."""
+    """Convert one parameter tree (text, UNet, VAE decoder or encoder,
+    ControlNet) to the port's layout."""
     return _convert(tree)

@@ -31,8 +31,16 @@ instead of swapping the tree by pointer as the reference does:
   registry under the bytes they hold ("lora:..." and "lora-base:..."),
   where the reference registers a whole UNet per entry.
 
-The refiner, ControlNet hints and progress callbacks come with later
-slices; a spec that asks for one is refused with ``ValueError``.
+ControlNet hints (``spec.control_image``, scaled by
+``spec.controlnet_scale`` or the mode's ``controlnet_scale``) go to the
+pipeline's attached ControlNet; a progress hook (``spec.progress_cb``) is
+called ``(step, timestep)`` from the pipeline's progress bucket, without
+latents. With a ``refiner`` (the SDXL base -> refiner ensemble), a request
+of S >= 2 steps runs steps [0, k) on the base, k = round(S *
+``refiner_switch_at``) kept within [1, S - 1], hands the carry to the
+refiner on the device, and the refiner runs [k, S) and decodes: the hint
+and the style condition the base segment, progress rides the refiner's.
+Ensemble requests run solo (``supports_batching``, ``batchable``).
 """
 
 from __future__ import annotations
@@ -81,9 +89,17 @@ class CudaPipelineWorker:
 
     def __init__(self, pipeline: LCMPipeline, worker_id: int = 0, *,
                  styles: Optional[Dict[str, lora.StyleDef]] = None,
-                 default_size: Tuple[int, int] = (512, 512), warmup: bool = False):
+                 default_size: Tuple[int, int] = (512, 512), warmup: bool = False,
+                 controlnet_scale: float = 1.0, refiner: Optional[LCMPipeline] = None,
+                 refiner_switch_at: float = 0.8):
         self.pipeline = pipeline
         self.worker_id = worker_id
+        # the mode's ControlNet scale; a spec's controlnet_scale overrides it
+        self.controlnet_scale = controlnet_scale
+        self.refiner = refiner
+        self.refiner_switch_at = refiner_switch_at
+        # the coalescing path drives one pipeline and would bypass the handoff
+        self.supports_batching = refiner is None
         self.styles = dict(styles or {})
         self._style_cache: Dict[str, lora.LoRATensors] = {}  # path -> adapter
         self._active_paths: Tuple[str, ...] = ()  # the leaves the active style wrote
@@ -100,12 +116,6 @@ class CudaPipelineWorker:
             w, h = default_size
             with self._lock:
                 pipeline.warmup(h, w)
-
-    @staticmethod
-    def _check_supported(spec: GenSpec) -> None:
-        if spec.control_image is not None or spec.progress_cb is not None:
-            raise ValueError("ControlNet hints and progress callbacks come with a "
-                             "later slice of the port")
 
     # ------------------------------------------------------------------
     # styles
@@ -200,20 +210,34 @@ class CudaPipelineWorker:
     # ------------------------------------------------------------------
 
     def _generate(self, spec: GenSpec):
-        self._check_supported(spec)
         width, height = spec.dims()
         seed = spec.seed if spec.seed is not None else _new_seed()
+        common = dict(height=height, width=width,
+                      num_inference_steps=spec.num_inference_steps,
+                      original_inference_steps=spec.original_inference_steps,
+                      guidance_scale=spec.guidance_scale,
+                      negative_prompt=spec.negative_prompt, seed=seed)
+        hint_kw, progress_kw = {}, {}
+        if spec.control_image is not None:
+            hint_kw = dict(control_image=spec.control_image,
+                           controlnet_scale=(spec.controlnet_scale
+                                             if spec.controlnet_scale is not None
+                                             else self.controlnet_scale))
+        if spec.progress_cb is not None:
+            cb = spec.progress_cb
+            progress_kw = dict(callback=lambda i, t, lat: cb(i, t), callback_latents=False)
+        steps = spec.num_inference_steps
         with self._lock:
             self._apply_style(spec.style, spec.style_level)
             try:
-                return self.pipeline.generate(
-                    spec.prompt, height=height, width=width,
-                    num_inference_steps=spec.num_inference_steps,
-                    original_inference_steps=spec.original_inference_steps,
-                    guidance_scale=spec.guidance_scale,
-                    negative_prompt=spec.negative_prompt, seed=seed,
-                    aesthetic_score=spec.aesthetic_score,
-                )
+                if self.refiner is None or steps < 2:
+                    return self.pipeline.generate(spec.prompt, aesthetic_score=spec.aesthetic_score,
+                                                  **common, **hint_kw, **progress_kw)
+                k = min(max(int(round(steps * self.refiner_switch_at)), 1), steps - 1)
+                base = self.pipeline.generate(spec.prompt, segment=(0, k), **common, **hint_kw)
+                return self.refiner.generate(
+                    spec.prompt, segment=(k, steps), latents_state=base.state_device,
+                    aesthetic_score=spec.aesthetic_score, **common, **progress_kw)
             finally:
                 self._apply_style(None, 0)
 
@@ -230,7 +254,6 @@ class CudaPipelineWorker:
                     mask: Optional[np.ndarray] = None) -> Tuple[bytes, int]:
         """img2img, or inpainting with ``mask``; the image's dims set the
         output size (``spec.size`` is not read)."""
-        self._check_supported(spec)
         seed = spec.seed if spec.seed is not None else _new_seed()
         with self._lock:
             self._apply_style(spec.style, spec.style_level)
@@ -257,9 +280,10 @@ class CudaPipelineWorker:
         rides the per-row w-embedding, classic CFG mixes per row). The mode
         is the boundary: guidance 1 through the CFG mix is not bit-equal to
         the cond-only call, so a g <= 1 row never joins a g > 1 batch on a
-        non-LCM UNet."""
+        non-LCM UNet. A worker with a refiner batches nothing."""
         if not (
-            a.size == b.size
+            self.supports_batching
+            and a.size == b.size
             and a.num_inference_steps == b.num_inference_steps
             and a.original_inference_steps == b.original_inference_steps
             and (a.style, a.style_level) == (b.style, b.style_level)
@@ -279,8 +303,6 @@ class CudaPipelineWorker:
         first = specs[0]
         if not all(self.batchable(first, s) for s in specs[1:]):
             raise ValueError("run_jobs takes mutually batchable specs")
-        for s in specs:
-            self._check_supported(s)
         width, height = first.dims()
         seeds = [s.seed if s.seed is not None else _new_seed() for s in specs]
         pipe = self.pipeline
@@ -313,11 +335,11 @@ class CudaPipelineWorker:
         ]
 
     def close(self) -> None:
-        """Unregister the style cache and base copies and drop the pipeline."""
+        """Unregister the style cache and base copies and drop the pipelines."""
         self._merged_clear()
         self._base.clear()
         self._style_cache.clear()
-        self.pipeline = None
+        self.pipeline = self.refiner = None
 
 
 def _nbytes(tensors: Dict[str, torch.Tensor]) -> int:

@@ -7,9 +7,10 @@ tensor shapes and configs, never file names), loaded by
 single LDM-layout file), extended by the mode's textual-inversion
 embeddings before the weights are placed, merged with the mode's LoRAs,
 and served by a ``CudaPipelineWorker`` with the style registry. LoRAs and
-ControlNets cannot serve on their own and raise ``WorkerCreationError``;
-attached ControlNets and the refiner ensemble come with a later slice and
-are refused with ``ValueError``.
+ControlNets cannot serve on their own and raise ``WorkerCreationError``. A
+mode's ControlNet (``attach_mode_controlnet``) and refiner checkpoint (the
+SDXL base -> refiner ensemble) are loaded beside it; either one that fails
+to load warns, and the worker serves without it, as in the reference.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import lora
-from ..loader import load_pipeline
+from ..loader import load_controlnet, load_pipeline
 from ..pipeline import LCMPipeline, resolve_device
 from ..textual_inversion import apply_embeddings
 from ..utils.model_detector import DetectionError, detect_model
@@ -76,6 +77,41 @@ def apply_mode_loras(pipeline, loras) -> None:
                     entry.strength, tensors.num_modules, 1e3 * (time.perf_counter() - t0))
 
 
+def attach_mode_controlnet(pipeline, controlnet) -> float:
+    """Load a mode's ControlNet (``.file``: a diffusers-layout directory,
+    ``.scale``) onto the pipeline's device and attach it; returns the mode's
+    default conditioning scale. A ControlNet that cannot be read or does not
+    fit the UNet warns, and the mode serves without conditioning (scale 1.0
+    returned), as in the reference."""
+    t0 = time.perf_counter()
+    try:
+        params, cfg = load_controlnet(controlnet.file, device=pipeline.device)
+        pipeline.set_controlnet(params, cfg)
+    except Exception as e:  # warn-don't-raise: never fail a mode over a ControlNet
+        logger.warning("controlnet %s not attached (%s); serving without conditioning",
+                       controlnet.file, e)
+        return 1.0
+    logger.info("controlnet %s attached (scale %.2f) in %.0f ms", controlnet.file,
+                controlnet.scale, 1e3 * (time.perf_counter() - t0))
+    return controlnet.scale
+
+
+def _load_refiner(refiner, *, dtype, device) -> Optional[LCMPipeline]:
+    """A mode's refiner checkpoint (``.file``) as a pipeline with its VAE
+    encoder, or None with a warning where it cannot load (the worker then
+    serves the base alone)."""
+    t0 = time.perf_counter()
+    try:
+        pipe = LCMPipeline(load_pipeline(refiner.file, device=device, load_vae_encoder=True),
+                           dtype=dtype, device=device)
+    except Exception as e:  # warn-don't-raise, as for LoRAs and ControlNets
+        logger.warning("refiner %s not loaded (%s); serving base only", refiner.file, e)
+        return None
+    logger.info("refiner %s loaded (switch_at %.2f) in %.1fs", refiner.file, refiner.switch_at,
+                time.perf_counter() - t0)
+    return pipe
+
+
 def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
                        device=None, styles: Optional[Dict[str, lora.StyleDef]] = None,
                        loras=None, embeddings=None, controlnet=None, refiner=None,
@@ -87,13 +123,12 @@ def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
     embeddings: textual-inversion entries (``.file``, optional ``.name``)
     applied to the bundle before the weights are placed. loras: mode LoRAs
     (``.file``, ``.strength``) merged into the placed weights. styles: the
-    per-request styles (None = ``get_style_registry()``). warmup_size:
+    per-request styles (None = ``get_style_registry()``). controlnet: the
+    mode's ControlNet (``.file``, ``.scale``), attached to the pipeline.
+    refiner: the mode's refiner checkpoint (``.file``, ``.switch_at``),
+    loaded beside it for the base -> refiner ensemble. warmup_size:
     (width, height) of a bucket to capture before the worker is returned.
     """
-    for given, what in ((controlnet, "ControlNets"), (refiner, "refiner checkpoints")):
-        if given:
-            raise ValueError(f"{what} are not served yet: they come with the "
-                             "ControlNet/refiner slice of the port")
     dev = resolve_device(device)
     arch = detect_worker_type(model_path)
     t0 = time.perf_counter()
@@ -104,11 +139,18 @@ def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
     del bundle
     if loras:
         apply_mode_loras(pipeline, loras)
+    ensemble = {}
+    if controlnet is not None:
+        ensemble["controlnet_scale"] = attach_mode_controlnet(pipeline, controlnet)
+    if refiner is not None:
+        ensemble["refiner"] = _load_refiner(refiner, dtype=dtype, device=dev)
+        if ensemble["refiner"] is not None:
+            ensemble["refiner_switch_at"] = refiner.switch_at
     logger.info("worker %d: loaded %s (%s) in %.1fs", worker_id, model_path, arch,
                 time.perf_counter() - t0)
     if styles is None:
         styles = get_style_registry()
     if warmup_size:
         return CudaPipelineWorker(pipeline, worker_id, styles=styles,
-                                  default_size=warmup_size, warmup=True)
-    return CudaPipelineWorker(pipeline, worker_id, styles=styles)
+                                  default_size=warmup_size, warmup=True, **ensemble)
+    return CudaPipelineWorker(pipeline, worker_id, styles=styles, **ensemble)

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from .models import controlnet
 from .models.configs import CLIPTextConfig, UNetConfig, VAEConfig
 from .pipeline import PipelineBundle, resolve_device
 from .scheduler.lcm import LCMConfig, load_scheduler_config
@@ -204,10 +205,9 @@ def _resnet(w: _W, key: str, *, temb: bool) -> Dict:
     return p
 
 
-def convert_unet(tensors: Dict[str, torch.Tensor], cfg: UNetConfig, *,
-                 device="cpu") -> Dict:
-    """A diffusers ``UNet2DConditionModel`` state dict -> ``models/unet.py``'s tree."""
-    w = _W(tensors, torch.device(device))
+def _convert_unet_trunk(w: _W, cfg: UNetConfig) -> Dict:
+    """The UNet's conv_in, embeddings, down and mid stack: the whole of a
+    ControlNet's trunk, and the first part of a UNet."""
     params: Dict[str, Any] = {
         "conv_in": w.conv("conv_in"),
         "time_embedding": {"linear_1": w.linear("time_embedding.linear_1"),
@@ -241,7 +241,14 @@ def convert_unet(tensors: Dict[str, torch.Tensor], cfg: UNetConfig, *,
         mid["attention"] = _unet_transformer(w, "mid_block.attentions.0",
                                              cfg.mid_block_transformer_layers)
     params["mid"] = mid
+    return params
 
+
+def convert_unet(tensors: Dict[str, torch.Tensor], cfg: UNetConfig, *,
+                 device="cpu") -> Dict:
+    """A diffusers ``UNet2DConditionModel`` state dict -> ``models/unet.py``'s tree."""
+    w = _W(tensors, torch.device(device))
+    params = _convert_unet_trunk(w, cfg)
     up: List[Dict] = []
     for k in range(cfg.num_blocks):
         tl = cfg.transformer_layers_per_block[cfg.num_blocks - 1 - k]
@@ -262,6 +269,48 @@ def convert_unet(tensors: Dict[str, torch.Tensor], cfg: UNetConfig, *,
     params["conv_out"] = w.conv("conv_out")
     w.warn_unused("unet")
     return params
+
+
+def convert_controlnet(tensors: Dict[str, torch.Tensor], cfg: UNetConfig, *,
+                       device="cpu") -> Dict:
+    """A diffusers ``ControlNetModel`` state dict -> ``models/controlnet.py``'s
+    tree: the UNet trunk, the hint ladder (``controlnet_cond_embedding.*``)
+    and the zero-conv taps (``controlnet_down_blocks.{i}``,
+    ``controlnet_mid_block``)."""
+    w = _W(tensors, torch.device(device))
+    params = _convert_unet_trunk(w, cfg)
+
+    def numbered(prefix):
+        out, i = [], 0
+        while w.has(f"{prefix}.{i}.weight"):
+            out.append(w.conv(f"{prefix}.{i}"))
+            i += 1
+        return out
+
+    params["cond_embedding"] = {
+        "conv_in": w.conv("controlnet_cond_embedding.conv_in"),
+        "blocks": numbered("controlnet_cond_embedding.blocks"),
+        "conv_out": w.conv("controlnet_cond_embedding.conv_out"),
+    }
+    params["zero_down"] = numbered("controlnet_down_blocks")
+    params["zero_mid"] = w.conv("controlnet_mid_block")
+    w.warn_unused("controlnet")
+    return params
+
+
+def load_controlnet(model_dir: str, *, device=None) -> Tuple[Dict, UNetConfig]:
+    """A diffusers-layout ControlNet directory (``config.json`` and its
+    safetensors file) -> (params, cfg) for ``LCMPipeline.set_controlnet``,
+    tensors on ``device`` (None = the CUDA device) in the file's dtype.
+    Raises if the taps do not match the trunk's skip connections."""
+    dev = resolve_device(device)
+    cfg = unet_config_from_json(_read_json(os.path.join(model_dir, "config.json")))
+    params = convert_controlnet(_load_weights(model_dir), cfg, device=dev)
+    n_skips = controlnet.skip_count(cfg)
+    if len(params["zero_down"]) != n_skips:
+        raise ValueError(f"controlnet has {len(params['zero_down'])} down taps; the UNet "
+                         f"trunk produces {n_skips} skips: incompatible architecture")
+    return params, cfg
 
 
 def _vae_mid(w: _W, prefix: str) -> Dict:

@@ -10,8 +10,9 @@ code with other config values.
 
 q/k/v stay three projections: the JAX package packs them into one matmul
 (``pack_attention_params``) to suit the TPU's placement; whether packing
-pays on the card is not measured yet. ControlNet's residual taps come with
-its slice.
+pays on the card is not measured yet. ``forward`` takes a ControlNet's
+residual taps (``models/controlnet.py``): one per skip connection and one
+for the mid block's output.
 """
 
 from __future__ import annotations
@@ -140,13 +141,18 @@ def mid_block(params, cfg: UNetConfig, x, emb, context):
 
 
 def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
-            timestep_cond=None, added_text_embeds=None, added_time_ids=None):
+            timestep_cond=None, added_text_embeds=None, added_time_ids=None,
+            down_residuals=None, mid_residual=None):
     """Predict noise for ``sample`` [B, H, W, 4] at ``timesteps`` [B].
 
     encoder_hidden_states: [B, 77, cross_attention_dim] text conditioning.
     timestep_cond: [B, time_cond_proj_dim] LCM guidance embedding (w).
     added_text_embeds / added_time_ids: SDXL micro-conditioning
     ([B, pooled_dim], [B, 6] or [B, 5] for the refiner).
+    down_residuals / mid_residual: ControlNet taps, one residual per skip
+    connection plus one for the mid output, cast to their dtype and added to
+    the skips the up stack reads and to the mid output (diffusers'
+    contract). Left None, the function is the plain UNet.
     Returns fp32 [B, H, W, 4].
     """
     if cfg.addition_embed_type not in (None, "text_time"):
@@ -162,7 +168,15 @@ def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
 
     x = conv2d(params["conv_in"], x)
     x, skips = down_blocks(params, cfg, x, emb, context)
+    if down_residuals is not None:
+        if len(down_residuals) != len(skips):
+            raise ValueError(f"ControlNet provides {len(down_residuals)} down residuals but "
+                             f"this UNet has {len(skips)} skip connections: architecture "
+                             "mismatch")
+        skips = [s + r.to(s.dtype) for s, r in zip(skips, down_residuals)]
     x = mid_block(params, cfg, x, emb, context)
+    if mid_residual is not None:
+        x = x + mid_residual.to(x.dtype)
     for k, block in enumerate(params["up"]):
         heads = cfg.num_attention_heads[cfg.num_blocks - 1 - k]
         for j, res in enumerate(block["resnets"]):

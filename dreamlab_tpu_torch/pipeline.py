@@ -10,10 +10,13 @@ A request runs in two parts, as in the JAX package:
   bucket (``_build``, ``_get_compiled``); here it is captured once per
   bucket as a CUDA graph and replayed (``_GraphProgram``). The bucket key is
   (batch, h_lat, w_lat, steps, cfg_mode, rng_mode, original_inference_steps,
-  task): txt2img bakes the schedule's entries into the program as Python
-  floats, so the original step count that shapes the schedule belongs to the
-  key. On the CPU a bucket's program is the same function run eagerly
-  (``_EagerProgram``), cached under the same key.
+  task), followed by ("segment", (start, stop)), ("progress", mode) and
+  ("ctrl", ControlNet config) where a request has them (a plain request's
+  key has none): txt2img bakes the schedule's entries into the program as
+  Python floats, so the original step count that shapes the schedule, and
+  a segment's bounds, belong to the key. On the CPU a bucket's program is
+  the same function run eagerly (``_EagerProgram``), cached under the same
+  key.
 
 img2img and inpainting (``img2img``, ``inpaint``; task "img2img" /
 "inpaint") VAE-encode the init image, renoise it to the first timestep of
@@ -47,21 +50,49 @@ exactly as the JAX package does, so a seed gives the same noise in both.
 seeded with the seed, straight into the program's inputs: deterministic per
 seed on one device, and not equal to host noise (as the JAX package's
 device mode is not). Explicit ``latents`` / ``step_noises`` force host
-noise. Segments (the refiner ensemble) and callbacks come later.
+noise.
+
+Segments (``generate(segment=(start, stop), latents_state=)``, the SDXL base
+-> refiner ensemble): steps [start, stop) of the ladder, with the schedule
+sliced (``slice_schedule``) and baked into the bucket's program as the full
+run's is, and the noise of the same host stream a full run draws; a segment
+that ends early decodes nothing and returns its fp32 carry on the device
+(``state_device``), which the next segment's graph copies into its static
+input on the device. So (0, k) then (k, S) equals the S-step run bit for
+bit. A device schedule would not: CUDA divides by a host scalar as a
+product with its reciprocal, by a device scalar exactly.
+
+ControlNet (``set_controlnet``, ``generate(control_image=,
+controlnet_scale=)``): the hint and the scale are staged inputs; the hint
+embedding runs once per request, the trunk once per UNet call. A ctrl
+bucket's graph reads the ControlNet's leaves where it captured them, so a
+net of the same config is written into the live leaves and one of another
+config (or a detach) drops the ctrl buckets.
+
+Progress (``generate(callback=, callback_steps=, callback_latents=)``):
+``callback(step, timestep, latents)`` as the JAX package calls it, from a
+bucket of its own ("steps" or "latents"). A graph cannot call the host, so
+its program records an external CUDA event after each step (and, for
+"latents", copies the step's latents into a static slot); the calling
+thread waits on event i while the replay runs on, reads slot i on a side
+stream and hands it to ``_progress_emit``, which filters, orders and guards
+the calls as the JAX package's trampoline does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
+import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .models import clip_text, unet, vae
+from .models import clip_text, controlnet, unet, vae
 from .models.configs import CLIPTextConfig, UNetConfig, VAEConfig
 from .scheduler.lcm import (
     LCMConfig,
@@ -71,6 +102,7 @@ from .scheduler.lcm import (
     make_lcm_schedule,
     SCHEDULE_FIELDS,
     schedule_on,
+    slice_schedule,
 )
 from .utils.tokenizer import CLIPTokenizer
 
@@ -79,7 +111,10 @@ logger = logging.getLogger(__name__)
 # the refiner's uncond-branch aesthetic score (diffusers' default)
 NEGATIVE_AESTHETIC_SCORE = 2.5
 
-BucketKey = Tuple[int, int, int, int, str, str, Optional[int], str]
+# (batch, h_lat, w_lat, steps, cfg_mode, rng_mode, original_steps, task) and,
+# where a request has them, ("segment", (start, stop)), ("progress", mode),
+# ("ctrl", ControlNet config)
+BucketKey = Tuple
 
 
 @dataclasses.dataclass
@@ -106,20 +141,30 @@ class PipelineBundle:
 
 @dataclasses.dataclass
 class GenerationResult:
-    images: np.ndarray  # [B, H, W, 3] uint8
+    images: Optional[np.ndarray]  # [B, H, W, 3] uint8; None for a segment that ends early
     seed: int
-    latents: np.ndarray  # [B, h, w, 4] fp32 final denoised latents
+    latents: Optional[np.ndarray]  # [B, h, w, 4] fp32 final denoised latents; None as images
+    # a segment that ends early: its fp32 carry [B, h, w, 4] on the device
+    state_device: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class _Staged:
     """One request after host staging: its bucket and its program's inputs
-    (host arrays; in device-RNG mode without the two noise arrays)."""
+    (host arrays, and a segment's carry as a device tensor; in device-RNG
+    mode without the two noise arrays), and its progress callback's
+    registry token (0: none)."""
 
     key: BucketKey
-    inputs: Dict[str, np.ndarray]
+    inputs: Dict[str, Any]
     seed: int
     init_noise_sigma: float
+    progress_token: int = 0
+
+
+def _extras(key: BucketKey) -> Dict[str, Any]:
+    """The optional entries of a bucket key: segment, progress, ctrl."""
+    return dict(key[8:])
 
 
 def resolve_device(device=None) -> torch.device:
@@ -165,6 +210,20 @@ def _place_params(tree, dtype: torch.dtype, device: torch.device):
         return t.clone() if t.is_inference() else t
 
 
+def _flat(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """{path: leaf} of a parameter tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
 def _draw_device_noise(seed: int, lat0: torch.Tensor, noises: torch.Tensor,
                        init_noise_sigma: float) -> None:
     """Device RNG: fill the program's noise inputs in place from a generator
@@ -175,14 +234,32 @@ def _draw_device_noise(seed: int, lat0: torch.Tensor, noises: torch.Tensor,
     noises.normal_(generator=gen)
 
 
+def _tensor(v) -> torch.Tensor:
+    """A staged input as a tensor: a host array viewed, a device tensor (a
+    segment's carry) as it is."""
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+
+
 def _device_inputs(pipe: "LCMPipeline", staged: _Staged) -> Dict[str, torch.Tensor]:
-    """A request's program inputs on the pipeline's device: the staged host
-    arrays, and in device-RNG mode the noise drawn there."""
-    x = {k: torch.from_numpy(v).to(pipe.device) for k, v in staged.inputs.items()}
+    """A request's program inputs on the pipeline's device, each its own
+    copy: the staged host arrays and carry, and in device-RNG mode the noise
+    drawn there."""
+    x = {k: _tensor(v).to(pipe.device, copy=True) for k, v in staged.inputs.items()}
     if staged.key[5] == "device":
         x.update(pipe._noise_buffers(staged.key))
         _draw_device_noise(staged.seed, x["lat0"], x["noises"], staged.init_noise_sigma)
     return x
+
+
+def _host_results(key: BucketKey, outputs):
+    """(images, latents, carry) of a program's outputs: a segment that ends
+    early keeps its carry on the device (a copy of it, where a graph's
+    output would be overwritten by the bucket's next replay), the others
+    come to the host."""
+    if key[7] == "latent":
+        return None, None, outputs[0].clone()
+    images, latents = outputs
+    return images.cpu().numpy(), latents.cpu().numpy(), None
 
 
 class _EagerProgram:
@@ -193,35 +270,60 @@ class _EagerProgram:
         self.key = key
 
     def __call__(self, pipe: "LCMPipeline", staged: _Staged):
+        progress = _extras(self.key).get("progress")
+        sink = None
+        if progress is not None:
+            timesteps = pipe._key_schedule(self.key).timesteps
+
+            def sink(i, lat):
+                pipe._progress_emit(staged.progress_token, i, timesteps[i],
+                                    lat.cpu().numpy() if progress == "latents" else None)
+
         with torch.inference_mode():
-            images, latents = pipe._program(self.key, _device_inputs(pipe, staged))
-            return images.cpu().numpy(), latents.cpu().numpy()
+            return _host_results(self.key, pipe._program(self.key, _device_inputs(pipe, staged),
+                                                         progress=sink))
 
 
 class _GraphProgram:
     """A bucket's program as one captured CUDA graph.
 
     Static inputs live at fixed addresses: each call copies the staged host
-    arrays into them (device RNG draws straight into the noise inputs),
-    replays the graph, and copies images and latents to the host before it
-    returns, since the next replay overwrites them. Capture follows one
-    eager run on a side stream, which builds the kernel library, sets the
-    kernels' attributes and lets cuBLAS and cuDNN settle, none of which may
-    happen while capturing. The graphs of one pipeline share its memory pool;
-    the caller serializes capture and replay (the worker's lock). The
-    program keeps no reference to the pipeline: deleting the pipeline
-    frees its graphs and their pool.
+    arrays (a segment's carry: device to device) into them (device RNG draws
+    straight into the noise inputs), replays the graph, and copies images
+    and latents to the host, or a segment's carry to a tensor of its own,
+    before it returns, since the next replay overwrites them. Capture
+    follows one eager run on a side stream, which builds the kernel library,
+    sets the kernels' attributes and lets cuBLAS and cuDNN settle, none of
+    which may happen while capturing. The graphs of one pipeline share its
+    memory pool; the caller serializes capture and replay (the worker's
+    lock). The program keeps no reference to the pipeline: deleting the
+    pipeline frees its graphs and their pool.
+
+    A progress bucket records one external event per step (and copies each
+    step's latents into its slot of a static buffer); after launching the
+    replay, the call waits on each event in turn and reads the slot on a
+    side stream while the graph runs on.
     """
 
     def __init__(self, pipe: "LCMPipeline", staged: _Staged):
         dev = pipe.device
         key = staged.key
+        progress = _extras(key).get("progress")
+        self.events = self.slots = None
         with torch.inference_mode():
             self.inputs = _device_inputs(pipe, staged)
+            if progress is not None:
+                self.timesteps = pipe._key_schedule(key).timesteps
+                steps = len(self.timesteps)
+                self.events = [torch.cuda.Event(external=True) for _ in range(steps)]
+                if progress == "latents":
+                    self.slots = torch.empty((steps, *self.inputs["lat0"].shape), device=dev)
+                self.reader = torch.cuda.Stream(dev)
+            sink = None if progress is None else self._record
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                pipe._program(key, self.inputs)
+                pipe._program(key, self.inputs, progress=sink)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
@@ -229,23 +331,35 @@ class _GraphProgram:
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph, pool=pipe._graph_pool):
-                self.outputs = pipe._program(key, self.inputs)
+                self.outputs = pipe._program(key, self.inputs, progress=sink)
             torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         # what this capture added to the shared pool (later buckets reuse
         # the blocks earlier ones freed, so they add less)
         self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
 
+    def _record(self, i: int, lat: torch.Tensor) -> None:
+        """Step ``i``'s progress nodes: its latents into slot i, then event i."""
+        if self.slots is not None:
+            self.slots[i].copy_(lat)
+        self.events[i].record()
+
     def __call__(self, pipe: "LCMPipeline", staged: _Staged):
         with torch.inference_mode():
-            for name, arr in staged.inputs.items():
-                self.inputs[name].copy_(torch.from_numpy(arr))
+            for name, v in staged.inputs.items():
+                self.inputs[name].copy_(_tensor(v))
             if staged.key[5] == "device":
                 _draw_device_noise(staged.seed, self.inputs["lat0"], self.inputs["noises"],
                                    staged.init_noise_sigma)
             self.graph.replay()
-            images, latents = self.outputs
-            return images.cpu().numpy(), latents.cpu().numpy()
+            for i, event in enumerate(self.events or ()):
+                event.synchronize()  # step i is done; the replay runs on
+                lat = None
+                if self.slots is not None:
+                    with torch.cuda.stream(self.reader):  # not behind the replay
+                        lat = self.slots[i].cpu().numpy()
+                pipe._progress_emit(staged.progress_token, i, self.timesteps[i], lat)
+            return _host_results(staged.key, self.outputs)
 
 
 class LCMPipeline:
@@ -289,6 +403,74 @@ class LCMPipeline:
         self._compiled: Dict[BucketKey, Any] = {}
         self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                             else None)
+        # an attached ControlNet (set_controlnet); requests opt in per call
+        self.controlnet_params: Optional[Dict] = None
+        self.controlnet_cfg: Optional[UNetConfig] = None
+        # progress callbacks: a request's token -> (callback, every, state)
+        self._progress_registry: Dict[int, Tuple[Callable, int, dict]] = {}
+        self._progress_tokens = itertools.count(1)
+        self._progress_lock = threading.Lock()
+
+    def set_controlnet(self, params, cfg: Optional[UNetConfig]) -> None:
+        """Attach a ControlNet (``models/controlnet.py``'s tree and its
+        UNetConfig), or detach it with ``params=None``. The net is checked
+        against the pipeline's UNet first (tap count, tap width, cross
+        attention width). A ctrl bucket's graph reads the leaves it
+        captured: a net of the attached net's config and shapes is written
+        into those leaves (``copy_``), so the graphs serve it as they are;
+        another net, or a detach, drops the ctrl buckets and their graphs."""
+        if params is None:
+            self._drop_ctrl_buckets()
+            self.controlnet_params = self.controlnet_cfg = None
+            return
+        ucfg = self.bundle.unet_cfg
+        n_skips = controlnet.skip_count(ucfg)
+        taps = params.get("zero_down", ())
+        if len(taps) != n_skips:
+            raise ValueError(f"ControlNet has {len(taps)} down taps but this UNet has "
+                             f"{n_skips} skip connections: architecture mismatch")
+        c0 = taps[0]["w"].shape[0]
+        if c0 != ucfg.block_out_channels[0]:
+            raise ValueError(f"ControlNet tap channels ({c0}) != UNet block_out_channels[0] "
+                             f"({ucfg.block_out_channels[0]})")
+        if cfg.cross_attention_dim != ucfg.cross_attention_dim:
+            raise ValueError(f"ControlNet cross_attention_dim {cfg.cross_attention_dim} != "
+                             f"UNet {ucfg.cross_attention_dim}")
+        if self.controlnet_params is not None and cfg == self.controlnet_cfg:
+            live, new = _flat(self.controlnet_params), _flat(params)
+            if {k: v.shape for k, v in live.items()} == {k: v.shape for k, v in new.items()}:
+                with torch.no_grad():
+                    for path, leaf in live.items():
+                        leaf.copy_(new[path])
+                return
+        self._drop_ctrl_buckets()
+        self.controlnet_params = _place_params(params, self.dtype, self.device)
+        self.controlnet_cfg = cfg
+
+    def _drop_ctrl_buckets(self) -> None:
+        for key in [k for k in self._compiled if "ctrl" in _extras(k)]:
+            del self._compiled[key]
+
+    def _progress_emit(self, token: int, step: int, timestep, latents=None) -> None:
+        """Deliver one step to the callback registered under ``token`` (the
+        JAX package's trampoline): steps filtered by ``step % every == 0``,
+        strictly increasing (a late or repeated step is dropped), the
+        callback called under the lock, latents NHWC in and NCHW out, and a
+        callback that raises logged, never raised into the request."""
+        step = int(step)
+        with self._progress_lock:
+            entry = self._progress_registry.get(int(token))
+            if entry is None:
+                return
+            cb, every, state = entry
+            if step % every != 0 or step <= state["last"]:
+                return
+            state["last"] = step
+            try:
+                lat = None if latents is None else np.asarray(latents).transpose(0, 3, 1, 2)
+                cb(step, int(timestep), lat)
+            except Exception:
+                logger.exception("progress callback failed at step %d", step)
 
     def cfg_mode(self, guidance_scale) -> str:
         """'wcond' for an LCM UNet (guidance as the w-embedding), else 'cfg'
@@ -344,6 +526,13 @@ class LCMPipeline:
         noises = noises.transpose(0, 1, 3, 4, 2)
         return np.ascontiguousarray(lat), np.ascontiguousarray(noises)
 
+    def _key_schedule(self, key: BucketKey) -> LCMSchedule:
+        """The host schedule a txt2img or segment bucket bakes in: the full
+        ladder's, sliced to the key's segment."""
+        schedule = self._schedule(key[3], key[6])
+        segment = _extras(key).get("segment")
+        return schedule if segment is None else slice_schedule(schedule, *segment)
+
     def _noise_buffers(self, key: BucketKey) -> Dict[str, torch.Tensor]:
         """Uninitialised lat0 [B, h, w, C] and noises [S, B, h, w, C] for a
         bucket whose noise is drawn on the device."""
@@ -386,17 +575,21 @@ class LCMPipeline:
                                     overlap=max(self._vae_tile // 4, 1))
         return vae.decode(self.vae_params, b.vae_cfg, latents)
 
-    def _program(self, key: BucketKey, x: Dict[str, torch.Tensor]):
+    def _program(self, key: BucketKey, x: Dict[str, torch.Tensor],
+                 progress: Optional[Callable] = None):
         """Encode, denoise and decode one bucket's batch from its inputs
         ``x`` (see ``_stage``, ``_stage_img2img``); returns (uint8 images
-        [B, H, W, 3], fp32 denoised latents [B, h, w, C]) on the device.
-        Reads its inputs and never writes them, so a captured graph can
-        replay it."""
-        _, _, _, steps, mode, _, original_steps, task = key
+        [B, H, W, 3], fp32 denoised latents [B, h, w, C]) on the device, or
+        for a segment that ends early (task "latent") its fp32 carry and
+        denoised latents, undecoded. ``progress(i, latents)`` is called
+        after each step of a progress bucket. Reads its inputs and never
+        writes them, so a captured graph can replay it."""
+        _, _, _, _, mode, _, _, task = key[:8]
+        cn_cfg = _extras(key).get("ctrl")
         b = self.bundle
         dev = self.device
-        if task == "txt2img":
-            schedule = self._schedule(steps, original_steps)
+        if task in ("txt2img", "latent"):
+            schedule = self._key_schedule(key)
             timestep = lambda i: torch.full((rows,), int(schedule.timesteps[i]),
                                             dtype=torch.int32, device=dev)
         else:  # the strength-truncated schedule is an input
@@ -415,15 +608,35 @@ class LCMPipeline:
                 pooled = torch.cat([pooled_neg, pooled])
             kw.update(added_text_embeds=pooled, added_time_ids=x["time_ids"])
         rows = ctx.shape[0]
+        if cn_cfg is not None:
+            # the hint's embedding does not depend on the latents: once per request
+            cn = self.controlnet_params
+            cond_emb = controlnet.embed_cond(cn["cond_embedding"], x["hint"])
+            if mode == "cfg":
+                cond_emb = torch.cat([cond_emb, cond_emb])
+            # a ControlNet reads the w-embedding and the micro-conditioning
+            # only where its own config has them (SD1.5 nets have no cond_proj)
+            cn_kw = {}
+            if cn_cfg.time_cond_proj_dim is not None and "timestep_cond" in kw:
+                cn_kw["timestep_cond"] = kw["timestep_cond"]
+            if cn_cfg.addition_embed_type == "text_time":
+                cn_kw.update(added_text_embeds=kw["added_text_embeds"],
+                             added_time_ids=kw["added_time_ids"])
         noises = x["noises"]
-        if task == "txt2img":
+        if task in ("txt2img", "latent"):
             lat = x["lat0"]
         else:  # renoise the init image to the ladder's first timestep
             x0 = self._encode_x0(x["image"], x["eps_post"])
             lat = schedule.sqrt_alpha_prod[0] * x0 + schedule.sqrt_beta_prod[0] * x["noise0"]
-        for i in range(steps):
+        for i in range(schedule.num_steps):
             xin = torch.cat([lat, lat]) if mode == "cfg" else lat
-            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, timestep(i), ctx, **kw)
+            t = timestep(i)
+            taps = {}
+            if cn_cfg is not None:
+                down, mid = controlnet.forward(cn, cn_cfg, xin, t, ctx, cond_emb,
+                                               conditioning_scale=x["ctrl_scale"], **cn_kw)
+                taps = {"down_residuals": down, "mid_residual": mid}
+            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, t, ctx, **kw, **taps)
             if mode == "cfg":
                 uncond, cond = noise_pred.chunk(2)
                 noise_pred = uncond + g * (cond - uncond)
@@ -433,6 +646,10 @@ class LCMPipeline:
                 known = (schedule.sqrt_alpha_prod_prev[i] * x0
                          + schedule.sqrt_beta_prod_prev[i] * x["noises_known"][i])
                 lat = x["mask_lat"] * lat + (1.0 - x["mask_lat"]) * known
+            if progress is not None:
+                progress(i, lat)
+        if task == "latent":  # the carry goes to the next segment, undecoded
+            return lat, denoised
         if task == "inpaint":
             denoised = x["mask_lat"] * denoised + (1.0 - x["mask_lat"]) * x0
         img = self._decode(denoised / b.vae_cfg.scaling_factor)
@@ -503,8 +720,13 @@ class LCMPipeline:
                seed: Optional[int] = None, batch: Optional[int] = None,
                latents: Optional[np.ndarray] = None,
                step_noises: Optional[np.ndarray] = None,
-               rng: Optional[str] = None, aesthetic_score: float = 6.0) -> _Staged:
-        """Host staging of one txt2img request (``generate``'s arguments)."""
+               rng: Optional[str] = None, aesthetic_score: float = 6.0,
+               control_image: Optional[np.ndarray] = None, controlnet_scale: float = 1.0,
+               segment: Optional[Tuple[int, int]] = None,
+               latents_state: Optional[torch.Tensor] = None,
+               progress: str = "none") -> _Staged:
+        """Host staging of one txt2img request (``generate``'s arguments;
+        ``progress``: "none", "steps" or "latents")."""
         divisor = self.vae_scale * 2 ** (self.bundle.unet_cfg.num_blocks - 1)
         if height % divisor or width % divisor:
             raise ValueError(f"height/width must be multiples of {divisor} "
@@ -518,18 +740,33 @@ class LCMPipeline:
         mode, cond = self._conditioning(prompts, guidance_scale, negative_prompt, height, width,
                                         aesthetic_score)
 
+        start, stop = segment or (0, num_inference_steps)
+        if segment is not None and not 0 <= start < stop <= num_inference_steps:
+            raise ValueError(f"segment {segment} out of range for {num_inference_steps} steps")
+        if (segment is not None or latents_state is not None) and (
+                (start > 0) != (latents_state is not None)):
+            raise ValueError("segments starting after 0 require latents_state (and only they "
+                             "may pass one)")
+        if segment is not None and (latents is not None or step_noises is not None):
+            raise ValueError("segment is incompatible with explicit latents/step_noises")
         rng_mode = rng or os.environ.get("DREAMLAB_RNG", "host")
         if rng_mode not in ("host", "device"):
             raise ValueError(f"unknown rng mode {rng_mode!r} (host | device)")
-        if latents is not None or step_noises is not None:
-            rng_mode = "host"  # explicit noise forces the host path
+        if latents is not None or step_noises is not None or segment is not None:
+            rng_mode = "host"  # explicit noise and segments force the host path
         schedule = self._schedule(num_inference_steps, original_inference_steps)
         h_lat, w_lat = height // self.vae_scale, width // self.vae_scale
         c = self.latent_channels
-        inputs: Dict[str, np.ndarray] = {}
+        inputs: Dict[str, Any] = {}
         if rng_mode == "host":
             lat0, noises = self._sample_noise(seed, bsz, h_lat, w_lat, num_inference_steps,
                                               schedule.init_noise_sigma)
+            noises = noises[start:stop]  # a segment's noise: the full run's stream
+            if latents_state is not None:
+                # the previous segment's fp32 carry, on the device
+                lat0 = latents_state
+                if tuple(lat0.shape) != (bsz, h_lat, w_lat, c):
+                    raise ValueError(f"unexpected latents_state shape {tuple(lat0.shape)}")
             if latents is not None:
                 # provided latents are raw noise, scaled by init sigma
                 lat0 = np.asarray(latents, np.float32) * schedule.init_noise_sigma
@@ -541,13 +778,46 @@ class LCMPipeline:
                 if noises.shape != want:
                     raise ValueError(f"unexpected step_noises shape {noises.shape}; "
                                      f"want {want}")
-            inputs.update(lat0=np.ascontiguousarray(lat0, np.float32),
+            inputs.update(lat0=lat0 if latents_state is not None
+                          else np.ascontiguousarray(lat0, np.float32),
                           noises=np.ascontiguousarray(noises, np.float32))
         inputs.update(cond)
+        if control_image is not None:
+            inputs.update(hint=self._hint(control_image, bsz, height, width),
+                          ctrl_scale=np.asarray(controlnet_scale, np.float32))
+        extras = []
+        if (start, stop) != (0, num_inference_steps):
+            extras.append(("segment", (start, stop)))
+        if progress != "none":
+            extras.append(("progress", progress))
+        if control_image is not None:
+            extras.append(("ctrl", self.controlnet_cfg))
+        task = "latent" if stop < num_inference_steps else "txt2img"
         key = (bsz, h_lat, w_lat, num_inference_steps, mode, rng_mode,
-               original_inference_steps, "txt2img")
+               original_inference_steps, task, *extras)
         return _Staged(key=key, inputs=inputs, seed=seed,
                        init_noise_sigma=float(schedule.init_noise_sigma))
+
+    def _hint(self, control_image, bsz: int, height: int, width: int) -> np.ndarray:
+        """A ControlNet hint as the program takes it: [B, H, W, 3] fp32 in
+        [0, 1] at the output size (integer pixels / 255, one hint broadcast
+        over the batch), as the JAX package prepares it."""
+        if self.controlnet_params is None:
+            raise ValueError("control_image given but no ControlNet is attached "
+                             "(set_controlnet)")
+        hint = np.asarray(control_image)
+        if hint.ndim == 3:
+            hint = hint[None]
+        if np.issubdtype(hint.dtype, np.integer):
+            hint = hint.astype(np.float32) / 255.0
+        if hint.shape[1:3] != (height, width):
+            raise ValueError(f"control_image dims {hint.shape[1:3]} != output "
+                             f"{(height, width)}: resize the hint to the output size")
+        if hint.shape[0] == 1 and bsz > 1:
+            hint = np.broadcast_to(hint, (bsz,) + hint.shape[1:])
+        if hint.shape[0] != bsz:
+            raise ValueError(f"control_image has {hint.shape[0]} rows for batch {bsz}")
+        return np.ascontiguousarray(hint, np.float32)
 
     def _stage_img2img(self, prompt, init_image, *, mask: Optional[np.ndarray] = None,
                        strength: float = 0.5, aesthetic_score: float = 6.0,
@@ -634,7 +904,12 @@ class LCMPipeline:
                  latents: Optional[np.ndarray] = None,
                  step_noises: Optional[np.ndarray] = None,
                  rng: Optional[str] = None,
-                 aesthetic_score: float = 6.0) -> GenerationResult:
+                 aesthetic_score: float = 6.0,
+                 callback: Optional[Callable] = None, callback_steps: int = 1,
+                 callback_latents: bool = True,
+                 control_image: Optional[np.ndarray] = None, controlnet_scale: float = 1.0,
+                 segment: Optional[Tuple[int, int]] = None,
+                 latents_state: Optional[torch.Tensor] = None) -> GenerationResult:
         """Generate images: uint8 [B, H, W, 3] plus the final latents.
 
         guidance_scale: a scalar or one value per row; it picks the guidance
@@ -646,18 +921,53 @@ class LCMPipeline:
         "device" (None reads ``DREAMLAB_RNG``, default "host").
         aesthetic_score: the refiner's micro-conditioning.
 
+        callback: ``callback(step, timestep, latents)`` after every
+        ``callback_steps``-th step (steps strictly increasing; latents NCHW
+        numpy, or None with ``callback_latents=False``); a callback that
+        raises is logged and generation goes on. control_image: a hint
+        [H, W, 3] (or [B, H, W, 3]) at the output size, uint8 or float in
+        [0, 1], for the attached ControlNet (``set_controlnet``), its taps
+        times ``controlnet_scale``. segment: run steps [start, stop) of the
+        ``num_inference_steps`` ladder; one that ends early returns its
+        carry in ``result.state_device`` (a device tensor; no decode, no
+        host copy, ``images`` and ``latents`` None), one that starts after
+        0 takes the previous segment's as ``latents_state``. Segments draw
+        the full run's host noise stream.
+
         On the card the request replays its bucket's CUDA graph, captured on
         the bucket's first request (or by ``warmup``); a failed capture or
         replay raises.
         """
-        staged = self._stage(
-            prompt, height=height, width=width, num_inference_steps=num_inference_steps,
+        return self._generate(
+            prompt, False, callback, callback_steps, callback_latents, height=height,
+            width=width, num_inference_steps=num_inference_steps,
             original_inference_steps=original_inference_steps,
             guidance_scale=guidance_scale, negative_prompt=negative_prompt, seed=seed,
             batch=batch, latents=latents, step_noises=step_noises, rng=rng,
-            aesthetic_score=aesthetic_score)
-        images, latents_np = self._get_compiled(staged)(self, staged)
-        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+            aesthetic_score=aesthetic_score, control_image=control_image,
+            controlnet_scale=controlnet_scale, segment=segment, latents_state=latents_state)
+
+    def _generate(self, prompt, eager: bool, callback: Optional[Callable] = None,
+                  callback_steps: int = 1, callback_latents: bool = True,
+                  **kwargs) -> GenerationResult:
+        """``generate`` through the bucket's program, or with ``eager`` its
+        function run eagerly; a callback is registered for the call only."""
+        progress = "none" if callback is None else "latents" if callback_latents else "steps"
+        staged = self._stage(prompt, progress=progress, **kwargs)
+        if callback is not None:
+            staged.progress_token = next(self._progress_tokens)
+            with self._progress_lock:
+                self._progress_registry[staged.progress_token] = (
+                    callback, max(1, callback_steps), {"last": -1})
+        try:
+            program = _EagerProgram(staged.key) if eager else self._get_compiled(staged)
+            images, latents_np, state = program(self, staged)
+        finally:
+            if callback is not None:
+                with self._progress_lock:
+                    self._progress_registry.pop(staged.progress_token, None)
+        return GenerationResult(images=images, seed=staged.seed, latents=latents_np,
+                                state_device=state)
 
     def img2img(self, prompt, init_image: np.ndarray, *, mask: Optional[np.ndarray] = None,
                 strength: float = 0.5, aesthetic_score: float = 6.0,
@@ -678,7 +988,7 @@ class LCMPipeline:
             num_inference_steps=num_inference_steps,
             original_inference_steps=original_inference_steps, guidance_scale=guidance_scale,
             negative_prompt=negative_prompt, seed=seed)
-        images, latents_np = self._get_compiled(staged)(self, staged)
+        images, latents_np, _ = self._get_compiled(staged)(self, staged)
         return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
 
     def inpaint(self, prompt, init_image: np.ndarray, mask: np.ndarray, *,
@@ -688,15 +998,16 @@ class LCMPipeline:
         [H, W, 1]; nonzero = regenerate that region."""
         return self.img2img(prompt, init_image, mask=mask, strength=strength, **kwargs)
 
-    def _generate_eager(self, prompt, **kwargs) -> GenerationResult:
+    def _generate_eager(self, prompt, *, callback: Optional[Callable] = None,
+                        callback_steps: int = 1, callback_latents: bool = True,
+                        **kwargs) -> GenerationResult:
         """``generate`` without the bucket's graph: the same program run
         eagerly (the before/after comparison of ``chip_smoke.py``)."""
-        staged = self._stage(prompt, **kwargs)
-        images, latents_np = _EagerProgram(staged.key)(self, staged)
-        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+        return self._generate(prompt, True, callback, callback_steps, callback_latents,
+                              **kwargs)
 
     def _img2img_eager(self, prompt, init_image, **kwargs) -> GenerationResult:
         """``img2img`` without the bucket's graph (``_generate_eager``'s twin)."""
         staged = self._stage_img2img(prompt, init_image, **kwargs)
-        images, latents_np = _EagerProgram(staged.key)(self, staged)
+        images, latents_np, _ = _EagerProgram(staged.key)(self, staged)
         return GenerationResult(images=images, seed=staged.seed, latents=latents_np)

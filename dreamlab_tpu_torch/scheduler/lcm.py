@@ -168,6 +168,18 @@ def schedule_on(arrays, init_noise_sigma: float = 1.0) -> LCMSchedule:
                        init_noise_sigma=init_noise_sigma)
 
 
+def slice_schedule(schedule: LCMSchedule, start: int, stop: int) -> LCMSchedule:
+    """Steps [start, stop) of a schedule: diffusers' ``denoising_end`` /
+    ``denoising_start`` ensemble contract (SDXL base -> refiner) on the LCM
+    ladder. Slicing the full schedule keeps the handoff exact: the base
+    segment's last step still renoises toward ``timesteps[stop]`` (its
+    ``add_noise`` stays 1, its ``*_prev`` entries point into the next
+    segment), so the carry after [0, k) is the state a full run carries into
+    step k; only the full ladder's last step emits ``denoised`` as it is."""
+    return dataclasses.replace(schedule, **{name: getattr(schedule, name)[start:stop]
+                                            for name in SCHEDULE_FIELDS})
+
+
 def _at(arr, i: int):
     """Entry ``i`` of a schedule array: a 0-d tensor of a device schedule,
     else the fp32 host value as a Python float."""

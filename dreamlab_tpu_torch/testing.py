@@ -1,8 +1,11 @@
 """Randomly initialised SD1.5 and SDXL bundles, full width or tiny, and a writer
 that saves a bundle as a diffusers-layout checkpoint directory (port of
 ``dreamlab_tpu/testing.py::random_bundle`` and of the exporters of
-``tests/test_loader.py``), and random LoRA state dicts over every UNet
-projection the LoRA key map reaches (``random_lora``).
+``tests/test_loader.py``), random LoRA state dicts over every UNet
+projection the LoRA key map reaches (``random_lora``), random ControlNets
+and their diffusers directories (``random_controlnet``,
+``write_controlnet_dir``), and random SDXL refiner bundles
+(``random_refiner_bundle``).
 
 Speed does not depend on weight values, so the chip smoke run drives the real
 architectures with seeded random weights when no checkpoint is at hand. The
@@ -25,7 +28,7 @@ from typing import Dict
 import torch
 
 from . import lora
-from .models import clip_text, configs, unet, vae
+from .models import clip_text, configs, controlnet, unet, vae
 from .pipeline import PipelineBundle
 from .scheduler.lcm import LCMConfig
 from .utils.safetensors import save_file
@@ -92,6 +95,69 @@ def random_bundle(arch: str = "sd15", *, tiny: bool = False, seed: int = 0,
         )
 
 
+# the SDXL refiner's UNet: unet/config.json of stabilityai/stable-diffusion-xl-refiner-1.0
+SDXL_REFINER_UNET = configs.UNetConfig(
+    block_out_channels=(384, 768, 1536, 1536),
+    layers_per_block=2,
+    transformer_layers_per_block=(0, 4, 4, 0),
+    num_attention_heads=(6, 12, 24, 24),
+    cross_attention_dim=1280,
+    time_cond_proj_dim=None,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2560,  # pooled 1280 + 5 x 256
+    mid_block_transformer_layers=4,
+)
+
+# tests/test_refiner.py's tiny refiner: one bigG-like tower, 5 time ids
+TINY_REFINER_UNET = dataclasses.replace(configs.TINY_UNET_XL,
+                                        projection_class_embeddings_input_dim=32 + 5 * 8)
+
+# diffusers' ControlNetModel of lllyasviel/sd-controlnet-canny: the SD1.5
+# trunk without the LCM cond_proj, and its hint ladder's widths
+SD15_CONTROLNET = dataclasses.replace(configs.SD15_UNET, time_cond_proj_dim=None)
+CONTROLNET_COND_CHANNELS = (16, 32, 96, 256)
+
+
+def random_refiner_bundle(*, tiny: bool = False, seed: int = 0, device="cpu") -> PipelineBundle:
+    """An SDXL refiner bundle with random fp32 weights (the VAE encoder
+    included): one OpenCLIP bigG tower (SDXL_TEXT_BIGG; tiny: 64 wide, two
+    layers, projection 32) and the refiner's UNet (SDXL_REFINER_UNET, or
+    tests/test_refiner.py's TINY_REFINER_UNET) over the SDXL VAE (TINY_VAE)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tok = make_test_tokenizer(WORDS)
+    if tiny:
+        text_cfg = configs.CLIPTextConfig(
+            vocab_size=len(tok.encoder), hidden_size=64, num_layers=2, num_heads=2,
+            intermediate_size=64, hidden_act="gelu", penultimate=True, projection_dim=32)
+        unet_cfg, vae_cfg = TINY_REFINER_UNET, configs.TINY_VAE
+    else:
+        text_cfg = dataclasses.replace(configs.SDXL_TEXT_BIGG, vocab_size=len(tok.encoder))
+        unet_cfg, vae_cfg = SDXL_REFINER_UNET, configs.SDXL_VAE
+    with torch.no_grad():
+        return PipelineBundle(
+            arch="sdxl", tokenizer=tok, text_cfg=text_cfg,
+            text_params=clip_text.init_params(text_cfg, gen),
+            unet_cfg=unet_cfg, unet_params=unet.init_params(unet_cfg, gen),
+            vae_cfg=vae_cfg, vae_params=vae.init_decoder_params(vae_cfg, gen),
+            scheduler_cfg=LCMConfig(),
+            vae_encoder_params=vae.init_encoder_params(vae_cfg, gen))
+
+
+def random_controlnet(unet_cfg: configs.UNetConfig, *, seed: int = 7, zero_taps: bool = False,
+                      vae_scale: int = 8, cond_channels=None, device="cpu"):
+    """A random fp32 ControlNet for ``unet_cfg``'s trunk, drawn on ``device``.
+    The hint ladder's widths are ``cond_channels`` where given, else 16·2^i
+    over log2(vae_scale) + 1 levels (the JAX package's ``random_controlnet``),
+    so its embedding lands at latent resolution."""
+    if cond_channels is None:
+        cond_channels = tuple(16 * 2 ** i for i in range(vae_scale.bit_length()))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        return controlnet.init_params(unet_cfg, gen, cond_channels=tuple(cond_channels),
+                                      zero_taps=zero_taps)
+
+
 _DIFFUSERS_LEAF = {"q": "to_q", "k": "to_k", "v": "to_v", "out": "to_out.0",
                    "ff_geglu": "ff.net.0.proj", "ff_out": "ff.net.2"}
 
@@ -156,19 +222,20 @@ def random_lora(unet_params, *, rank: int = 8, dialect: str = "kohya", seed: int
     return out
 
 
+def cast_tree(tree, dtype: torch.dtype):
+    """A parameter tree with every leaf cast to ``dtype`` (None stays None)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_tree(v, dtype) for v in tree]
+    return None if tree is None else tree.to(dtype)
+
+
 def cast_params(bundle: PipelineBundle, dtype: torch.dtype) -> PipelineBundle:
     """``bundle`` with every leaf of its parameter trees cast to ``dtype``
     (the dtype ``write_diffusers_dir`` then stores)."""
-
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v) for v in tree]
-        return None if tree is None else tree.to(dtype)
-
     return dataclasses.replace(bundle, **{
-        name: cast(getattr(bundle, name))
+        name: cast_tree(getattr(bundle, name), dtype)
         for name in ("text_params", "text_params_2", "unet_params", "vae_params",
                      "vae_encoder_params")})
 
@@ -227,8 +294,8 @@ class _Out(dict):
         self.linear(key + ".proj_out", p["proj_out"])
 
 
-def export_unet(params) -> Dict[str, torch.Tensor]:
-    out = _Out()
+def _export_trunk(out: _Out, params) -> None:
+    """A UNet's conv_in, embeddings, down and mid stack (a ControlNet's trunk)."""
     out.conv("conv_in", params["conv_in"])
     for name, p in params["time_embedding"].items():
         out.linear(f"time_embedding.{name}", p)
@@ -245,6 +312,11 @@ def export_unet(params) -> Dict[str, torch.Tensor]:
     out.resnet("mid_block.resnets.1", params["mid"]["resnet2"])
     if "attention" in params["mid"]:
         out.transformer("mid_block.attentions.0", params["mid"]["attention"])
+
+
+def export_unet(params) -> Dict[str, torch.Tensor]:
+    out = _Out()
+    _export_trunk(out, params)
     for k, block in enumerate(params["up"]):
         for j, res in enumerate(block["resnets"]):
             out.resnet(f"up_blocks.{k}.resnets.{j}", res)
@@ -255,6 +327,39 @@ def export_unet(params) -> Dict[str, torch.Tensor]:
     out.norm("conv_norm_out", params["norm_out"])
     out.conv("conv_out", params["conv_out"])
     return out
+
+
+def export_controlnet(params) -> Dict[str, torch.Tensor]:
+    """A diffusers ``ControlNetModel`` state dict (``loader.convert_controlnet``'s inverse)."""
+    out = _Out()
+    _export_trunk(out, params)
+    emb = params["cond_embedding"]
+    out.conv("controlnet_cond_embedding.conv_in", emb["conv_in"])
+    for i, blk in enumerate(emb["blocks"]):
+        out.conv(f"controlnet_cond_embedding.blocks.{i}", blk)
+    out.conv("controlnet_cond_embedding.conv_out", emb["conv_out"])
+    for i, tap in enumerate(params["zero_down"]):
+        out.conv(f"controlnet_down_blocks.{i}", tap)
+    out.conv("controlnet_mid_block", params["zero_mid"])
+    return out
+
+
+def write_controlnet_dir(params, cfg: configs.UNetConfig, path: str) -> str:
+    """Save a ControlNet as diffusers lays one out: ``config.json`` of class
+    ``ControlNetModel`` (read by both packages' ``load_controlnet`` and by the
+    model detector) and its safetensors file, each tensor in its own dtype;
+    returns ``path``."""
+    raw = unet_config_json(cfg)
+    raw.pop("up_block_types")
+    raw.update(_class_name="ControlNetModel", conditioning_embedding_out_channels=[
+        blk["w"].shape[0] for blk in [params["cond_embedding"]["conv_in"]]
+        + params["cond_embedding"]["blocks"][1::2]])
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(raw, f, indent=1)
+    save_file(export_controlnet(params), os.path.join(path, "diffusion_pytorch_model.safetensors"),
+              {"format": "pt"})
+    return path
 
 
 def export_vae(params, encoder=None) -> Dict[str, torch.Tensor]:

@@ -85,6 +85,8 @@ def test_build_reports_registers(cuda):
     (2, 130, 77, 3, 7),      # odd head dim, ragged edges
     (1, 4096, 4096, 10, 64),  # SDXL at 1024²: level 1
     (2, 1024, 1024, 20, 64),  # SDXL at 1024²: level 2, the cfg mode's doubled batch
+    # the SDXL refiner at 1024²: levels 1 and 2, and its 4-layer mid block
+    (1, 4096, 4096, 12, 64), (1, 1024, 1024, 24, 64), (1, 256, 256, 24, 64),
 ])
 def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
     q = _randn((b, n, h, d), dtype, cuda, 0)
@@ -281,6 +283,24 @@ def test_group_norm_at_the_vae_encoder_widths(cuda, shape):
     _assert_close(got, want, None, TOL_BF16)
 
 
+@pytest.mark.parametrize("shape", [
+    # the SDXL refiner's UNet at 1024x1024 (widths 384/768/1536 and the up
+    # blocks' concatenations), every (size, channels) pair of one call
+    (1, 128, 128, 384), (1, 128, 128, 768), (1, 128, 128, 1152), (1, 64, 64, 384),
+    (1, 64, 64, 768), (1, 64, 64, 1152), (1, 64, 64, 1536), (1, 64, 64, 2304),
+    (1, 32, 32, 768), (1, 32, 32, 1536), (1, 32, 32, 2304), (1, 32, 32, 3072),
+    (1, 16, 16, 1536), (1, 16, 16, 3072),
+])
+def test_group_norm_at_the_refiner_widths(cuda, shape):
+    """bf16 GroupNorm+SiLU at the refiner's (channels, size) pairs against
+    the plain fp32 version."""
+    x = _randn(shape, torch.bfloat16, cuda, 11)
+    scale, bias = _gn_params(shape[-1], torch.bfloat16, cuda)
+    got = gn.fused_group_norm_silu(x, scale, bias, groups=32)
+    want = gn.group_norm_plain(x.float(), scale.float(), bias.float(), groups=32, silu=True)
+    _assert_close(got, want, None, TOL_BF16)
+
+
 def test_style_swap_in_place_under_a_captured_graph(cuda, tmp_path):
     """A style written into the live weights reaches the bucket's captured
     graph (the same PNG as the eager route with the style on), and
@@ -309,6 +329,41 @@ def test_style_swap_in_place_under_a_captured_graph(cuda, tmp_path):
     finally:
         worker._apply_style(None, 0)
     assert encode_png(eager.images[0]) == styled
+
+
+def test_progress_segments_and_controlnet_under_captured_graphs(cuda):
+    """The progress bucket's per-step latents (external events, slots read
+    on a side stream) equal the eager route's and leave the image as the
+    plain bucket's; (0, 1) then (1, 2) equals the 2-step run byte for byte
+    with the carry on the card; a ControlNet of the same config written into
+    the live leaves reaches the captured ctrl graph."""
+    from dreamlab_tpu_torch import testing
+    from dreamlab_tpu_torch.pipeline import LCMPipeline
+
+    pipe = LCMPipeline(testing.random_bundle(tiny=True, seed=3, device="cuda"))
+    kw = dict(height=64, width=64, num_inference_steps=2, seed=7)
+    steps, eager_steps = [], []
+    plain = pipe.generate("a cat", **kw)
+    got = pipe.generate("a cat", callback=lambda i, t, lat: steps.append((i, t, lat)), **kw)
+    pipe._generate_eager("a cat", callback=lambda i, t, lat: eager_steps.append((i, t, lat)),
+                         **kw)
+    assert np.array_equal(got.images, plain.images)
+    assert [s[:2] for s in steps] == [s[:2] for s in eager_steps] and len(steps) == 2
+    for (_, _, a), (_, _, b) in zip(steps, eager_steps):
+        assert np.array_equal(a, b)
+    base = pipe.generate("a cat", segment=(0, 1), **kw)
+    assert base.state_device.is_cuda
+    rest = pipe.generate("a cat", segment=(1, 2), latents_state=base.state_device, **kw)
+    assert np.array_equal(rest.images, plain.images)
+    ucfg = pipe.bundle.unet_cfg
+    pipe.set_controlnet(testing.random_controlnet(ucfg, vae_scale=2, seed=1, device="cuda"), ucfg)
+    hint = np.random.RandomState(0).randint(0, 256, (64, 64, 3)).astype(np.uint8)
+    first = pipe.generate("a cat", control_image=hint, **kw)
+    pipe.set_controlnet(testing.random_controlnet(ucfg, vae_scale=2, seed=2, device="cuda"), ucfg)
+    second = pipe.generate("a cat", control_image=hint, **kw)
+    eager = pipe._generate_eager("a cat", control_image=hint, **kw)
+    assert not np.array_equal(first.images, second.images)
+    assert np.array_equal(second.images, eager.images)
 
 
 def test_group_norm_at_2e31_values(cuda):

@@ -42,6 +42,18 @@ from tests.test_torch_port_loader import _leaves, assert_trees_equal
 from tests.test_torch_port_models import _np_tree
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch calls, restored after it:
+    the test workers share the CPU, and torch's OpenMP pool, oversubscribed,
+    stalls at every op's barrier (the tiny pipelines run ~10x slower).
+    Modules that import this fixture get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_bundle_of(jb) -> PipelineBundle:
     """The port's bundle of a JAX ``testing.random_bundle`` (the same words'
     test tokenizer, the trees converted)."""

@@ -20,7 +20,7 @@ def test_importing_every_module_loads_no_jax():
     assert "dreamlab_tpu_torch.scripts.ab_attention_layout" in mods
     for new in ("loader", "engine.worker_factory", "utils.safetensors", "lora",
                 "textual_inversion", "engine.styles", "engine.model_registry",
-                "utils.yaml_lite"):
+                "utils.yaml_lite", "models.controlnet"):
         assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

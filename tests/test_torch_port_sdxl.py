@@ -248,9 +248,10 @@ def test_create_cuda_worker_serves_the_in_memory_bundle(tmp_path):
 
 def test_create_cuda_worker_refuses_what_later_slices_bring(sdxl_dir, tmp_path, monkeypatch):
     """A LoRA or a ControlNet cannot serve alone (WorkerCreationError, as in
-    the reference); attached ControlNets and the refiner come with a later
-    slice (ValueError); mode LoRAs and embeddings are served, and a file
-    that cannot be read warns and is skipped, as in the reference."""
+    the reference); a mode's ControlNet or refiner that cannot be read warns
+    and the worker serves without it (the mode's scale falls back to 1.0);
+    mode LoRAs and embeddings are served, and a file that cannot be read
+    warns and is skipped, as in the reference."""
     path = str(tmp_path / "style.safetensors")
     save_file({"lora_unet_down_blocks_0_attn1_to_q.lora_down.weight": torch.zeros(4, 8)}, path)
     with pytest.raises(WorkerCreationError, match="LoRA"):
@@ -259,9 +260,12 @@ def test_create_cuda_worker_refuses_what_later_slices_bring(sdxl_dir, tmp_path, 
     (tmp_path / "controlnet" / "config.json").write_text('{"_class_name": "ControlNetModel"}')
     with pytest.raises(WorkerCreationError, match="ControlNet"):
         create_cuda_worker(0, str(tmp_path / "controlnet"), device="cpu")
-    for kw in (dict(controlnet="cn"), dict(refiner="r")):
-        with pytest.raises(ValueError, match="not served yet"):
-            create_cuda_worker(0, sdxl_dir, device="cpu", **kw)
+    worker = create_cuda_worker(
+        0, sdxl_dir, dtype=torch.float32, device="cpu",
+        controlnet=types.SimpleNamespace(file=str(tmp_path / "no_cn"), scale=0.5),
+        refiner=types.SimpleNamespace(file=str(tmp_path / "no_refiner"), switch_at=0.7))
+    assert worker.pipeline.controlnet_params is None and worker.controlnet_scale == 1.0
+    assert worker.refiner is None and worker.supports_batching
     missing = types.SimpleNamespace(file=str(tmp_path / "x.safetensors"), strength=1.0)
     worker = create_cuda_worker(0, sdxl_dir, dtype=torch.float32, device="cpu",
                                 loras=[missing], embeddings=[missing.file])

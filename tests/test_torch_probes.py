@@ -407,6 +407,27 @@ def test_device_ms_times_queued_calls_between_events(monkeypatch, host_s, want):
     if want is None:
         with pytest.raises(RuntimeError, match="to queue 10 calls"):
             timed()
+        assert len(calls) == 1 + 10 * t_timing.QUEUE_ATTEMPTS  # each window timed once
     else:
         assert timed() == pytest.approx(want)
         assert len(calls) == 11  # one warm-up call, then the 10 timed
+
+
+def test_device_ms_measures_a_slow_window_again(monkeypatch):
+    """A window the host was too slow to queue is thrown away and timed again:
+    the first timed window is slow, the second is not."""
+    import time as _time
+
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(_FakeEvent, "clock", [0.0])
+    calls = []
+
+    def call():
+        calls.append(1)
+        _FakeEvent.clock[0] += 0.5
+        _time.sleep(0.006 if 1 < len(calls) <= 11 else 0.0)
+
+    assert t_timing.device_ms(call, iters=10, warmup_s=0.0) == pytest.approx(0.5)
+    assert len(calls) == 21  # the warm-up call, the slow window, the timed one
