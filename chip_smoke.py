@@ -41,6 +41,24 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    built in memory from the same fp16 values, for both; then a worker from
    the directory with a mode LoRA and a two-vector textual inversion (the
    trigger word and the mode LoRA each change the PNG);
+6b. pool and super-resolution (counts reset before the pool path, read
+   after it: 2 x the census per captured bucket): two modes of that
+   directory in a ``modes.yaml`` (``a`` plain with a 512x768 background
+   bucket, ``b`` with the mode LoRA at 0.8), ``DREAMLAB_MODE_CACHE=2``,
+   ``DREAMLAB_MAX_BATCH=8``, ``WorkerPool`` with its default factory: 6
+   requests while ``a``'s 512x768 bucket is captured in the background and
+   an SR job runs, 16 solo requests (pipelined) in turns with 16 serial
+   ``run_job`` (img/s, a profiled run: busy share), one profiled pool
+   request (40 flash, 209 GroupNorm+SiLU), 8 requests coalesced into one
+   pipelined ``run_jobs`` beside serial ``run_jobs``, a tenant request for
+   ``b``, switches from the cache and cold, ``evict_mode``; every pool PNG
+   byte-equal to ``run_job``'s on the same worker; per mode the registered
+   bytes beside ``estimate_model_hbm`` and the measured delta. Then an ESPCN
+   ``.onnx`` at ``super-resolution-10``'s shape (seeded weights) through
+   ``SuperResService`` on one pool PNG at magnitude 1 (9 tiles) and 2 (49
+   tiles): the card's luma within 1 level of the CPU's fp32 forward, the
+   colour path byte-equal to the CPU's, ms per pass, host PNG decode and
+   encode ms, peak memory; the bicubic mode equal to the CPU's;
 7. SD1.5 extras: a new full-width worker with two styles (rank-8 LoRAs over
    every projection the key map reaches, kohya and diffusers dialect).
    Styles path (counts reset before it): unstyled, A at level 3 (its first
@@ -107,8 +125,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    version and SDPA; the phase reads their errors and times, adds each
    kernel's bound, and prints one ``{"probes": {...}}`` line;
 10. prints the run's seconds (``{"total_s": ...}``), the ``{"kernels": [...]}``
-   line (each kernel on the SD1.5 main path, then on the SDXL path with a
-   ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
+   line (each kernel on the SD1.5 main path, K1 and K2+K3 on the pool
+   path (``_pool``: its launches, the SD1.5 census's times), then on the
+   SDXL path with a ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
    ``_encoder_sdxl``), K1 at 1344x768, K1 and K2+K3 on the ControlNet path
    (``_controlnet``) and at the refiner segment's shapes (``_refiner``),
    then the probes' kernels), and last
@@ -129,6 +148,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import zlib
@@ -137,18 +157,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dreamlab_tpu_torch import lora
+from dreamlab_tpu_torch import lora, testing
 from dreamlab_tpu_torch.engine.base import GenSpec
 from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
+from dreamlab_tpu_torch.engine.mode_config import ModeConfigManager
 from dreamlab_tpu_torch.engine.model_registry import get_model_registry, reset_model_registry
 from dreamlab_tpu_torch.engine.worker_factory import create_cuda_worker
-from dreamlab_tpu_torch.models import layers, vae
+from dreamlab_tpu_torch.engine.worker_pool import CustomJob, GenerationJob, WorkerPool
+from dreamlab_tpu_torch.models import layers, superres, vae
+from dreamlab_tpu_torch.models.configs import SUPERRES
 from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
 from dreamlab_tpu_torch.pipeline import LCMPipeline, _flat
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
+from dreamlab_tpu_torch.serving.superres_service import (SuperResService, SuperResWorker,
+                                                         decode_rgb, load_sr_params)
 from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
                                                max_err)
 from dreamlab_tpu_torch.testing import (CONTROLNET_COND_CHANNELS, SD15_CONTROLNET,
@@ -157,7 +182,8 @@ from dreamlab_tpu_torch.testing import (CONTROLNET_COND_CHANNELS, SD15_CONTROLNE
                                         random_lora, random_refiner_bundle,
                                         write_controlnet_dir, write_diffusers_dir,
                                         write_single_file)
-from dreamlab_tpu_torch.utils.png import encode_png
+from dreamlab_tpu_torch.utils import image_ops
+from dreamlab_tpu_torch.utils.png import decode_png, encode_png
 from dreamlab_tpu_torch.utils.safetensors import save_file
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
@@ -794,62 +820,62 @@ def profile(run) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def loader_phase(per_request) -> dict:
+def loader_phase(per_request, root: str) -> dict:
     """SD1.5 at full width written as an fp16 diffusers directory and as an
-    fp16 LDM single file, each served by ``create_cuda_worker`` (the single
-    file with its bucket captured at load): each PNG must equal, byte for
-    byte, that of a pipeline built in memory from the same fp16 values."""
+    fp16 LDM single file under ``root``, each served by ``create_cuda_worker``
+    (the single file with its bucket captured at load): each PNG must equal,
+    byte for byte, that of a pipeline built in memory from the same fp16
+    values. The directory and the mode LoRA stay for phase 6b."""
     bundle = cast_params(random_bundle(seed=0, device="cuda"), torch.float16)
     spec = GenSpec("a mountain at sunset", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
                    seed=21)
     out = {}
-    with tempfile.TemporaryDirectory(prefix="dreamlab_ckpt_") as root:
-        paths = {"directory": os.path.join(root, "sd15"),
-                 "single_file": os.path.join(root, "sd15.safetensors")}
-        mode_lora = os.path.join(root, "mode_lora.safetensors")
-        save_file(random_lora(bundle.unet_params, rank=STYLE_RANK, seed=300,
-                              dtype=torch.float16), mode_lora)
-        embedding = os.path.join(root, "lumen.safetensors")
-        width = bundle.text_params["token_embedding"]["w"].shape[1]
-        save_file({"emb_params": 0.02 * randn((2, width), torch.float16, 301)}, embedding)
+    paths = {"directory": os.path.join(root, "sd15"),
+             "single_file": os.path.join(root, "sd15.safetensors")}
+    mode_lora = os.path.join(root, "mode_lora.safetensors")
+    save_file(random_lora(bundle.unet_params, rank=STYLE_RANK, seed=300,
+                          dtype=torch.float16), mode_lora)
+    embedding = os.path.join(root, "lumen.safetensors")
+    width = bundle.text_params["token_embedding"]["w"].shape[1]
+    save_file({"emb_params": 0.02 * randn((2, width), torch.float16, 301)}, embedding)
+    t0 = time.perf_counter()
+    write_diffusers_dir(bundle, paths["directory"])
+    write_s = {"directory": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    write_single_file(bundle, paths["single_file"])
+    write_s["single_file"] = time.perf_counter() - t0
+    nbytes = {"directory": sum(os.path.getsize(os.path.join(d, f)) for d, _, files
+                               in os.walk(paths["directory"]) for f in files),
+              "single_file": os.path.getsize(paths["single_file"])}
+    memory = CudaPipelineWorker(LCMPipeline(bundle))
+    del bundle
+    png_memory = memory.run_job(spec)[0]
+    del memory
+    torch.cuda.empty_cache()
+    for name, path in paths.items():
+        warmup = (SIZE, SIZE) if name == "single_file" else None
+        reset_counts()
         t0 = time.perf_counter()
-        write_diffusers_dir(bundle, paths["directory"])
-        write_s = {"directory": time.perf_counter() - t0}
-        t0 = time.perf_counter()
-        write_single_file(bundle, paths["single_file"])
-        write_s["single_file"] = time.perf_counter() - t0
-        nbytes = {"directory": sum(os.path.getsize(os.path.join(d, f)) for d, _, files
-                                   in os.walk(paths["directory"]) for f in files),
-                  "single_file": os.path.getsize(paths["single_file"])}
-        memory = CudaPipelineWorker(LCMPipeline(bundle))
-        del bundle
-        png_memory = memory.run_job(spec)[0]
-        del memory
+        worker = create_cuda_worker(0, path, warmup_size=warmup)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        png = worker.run_job(spec)[0]
+        launched = counts()
+        del worker
         torch.cuda.empty_cache()
-        for name, path in paths.items():
-            warmup = (SIZE, SIZE) if name == "single_file" else None
-            reset_counts()
-            t0 = time.perf_counter()
-            worker = create_cuda_worker(0, path, warmup_size=warmup)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            png = worker.run_job(spec)[0]
-            launched = counts()
-            del worker
-            torch.cuda.empty_cache()
-            check_png(png)
-            expect(png == png_memory, f"the {name} checkpoint's PNG differs from the "
-                                      "in-memory pipeline's on the same fp16 values")
-            # the bucket's capture (at load or on the first request) is the
-            # only place the wrappers run
-            expect(launched == {k: CAPTURE_RUNS * v for k, v in per_request.items()},
-                   f"the {name} worker launched {launched}, expected "
-                   f"{CAPTURE_RUNS} x {per_request}")
-            out[name] = {"checkpoint_bytes": nbytes[name], "write_s": write_s[name],
-                         "load_s": load_s, "warmup_size": warmup,
-                         "png_identical": png == png_memory, "launches": launched}
-        out["mode_lora_and_embedding"] = mode_extras(paths["directory"], mode_lora, embedding,
-                                                     spec, png_memory)
+        check_png(png)
+        expect(png == png_memory, f"the {name} checkpoint's PNG differs from the "
+                                  "in-memory pipeline's on the same fp16 values")
+        # the bucket's capture (at load or on the first request) is the
+        # only place the wrappers run
+        expect(launched == {k: CAPTURE_RUNS * v for k, v in per_request.items()},
+               f"the {name} worker launched {launched}, expected "
+               f"{CAPTURE_RUNS} x {per_request}")
+        out[name] = {"checkpoint_bytes": nbytes[name], "write_s": write_s[name],
+                     "load_s": load_s, "warmup_size": warmup,
+                     "png_identical": png == png_memory, "launches": launched}
+    out["mode_lora_and_embedding"] = mode_extras(paths["directory"], mode_lora, embedding,
+                                                 spec, png_memory)
     return out
 
 
@@ -877,6 +903,334 @@ def mode_extras(ckpt, mode_lora, embedding, spec, png_plain) -> dict:
     torch.cuda.empty_cache()
     return {"load_s": load_s, "triggers": triggers, "trigger_changes_png": lumen != plain,
             "mode_lora_changes_png": plain != png_plain}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the worker pool and the super-resolution service
+# ---------------------------------------------------------------------------
+
+POOL_SOLO = 16  # back-to-back solo requests through the pool (and as many serial run_job)
+POOL_BATCH = 8  # requests the pool coalesces into one pipelined run_jobs
+POOL_TIMEOUT_S = 120  # the longest the phase waits for one future
+
+
+def pool_spec(seed: int, mode=None) -> GenSpec:
+    return GenSpec(f"a lighthouse in the fog, seed {seed}", size=f"{SIZE}x{SIZE}",
+                   num_inference_steps=STEPS, seed=seed, mode=mode)
+
+
+def used_bytes() -> int:
+    """The card's used bytes (every process and cache), as the registry reads them."""
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def pool_stall(pool):
+    """Park the pool thread in a custom job; the returned event releases it."""
+    gate, entered = threading.Event(), threading.Event()
+
+    def blocker(_worker):
+        entered.set()
+        gate.wait(POOL_TIMEOUT_S)
+
+    pool.submit_job(CustomJob(blocker))
+    expect(entered.wait(POOL_TIMEOUT_S), "the pool thread never took the stalling job")
+    return gate
+
+
+def pool_run(pool, specs, t_ref=None) -> tuple:
+    """Submit every spec at once: (seconds from submit to the last result,
+    [(png, seed)], each future's settle time after ``t_ref``, default the
+    submit)."""
+    settled = []
+    t0 = time.perf_counter()
+    t_ref = t0 if t_ref is None else t_ref
+    futs = [pool.submit_job(GenerationJob(s)) for s in specs]
+    for f in futs:
+        f.add_done_callback(lambda _f: settled.append(time.perf_counter() - t_ref))
+    out = [f.result(timeout=POOL_TIMEOUT_S) for f in futs]
+    return time.perf_counter() - t0, out, sorted(settled)
+
+
+def wait_for(cond, what: str) -> float:
+    """Poll ``cond`` until it holds; the seconds it took (fails the run after
+    POOL_TIMEOUT_S)."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > POOL_TIMEOUT_S:
+            expect(False, f"{what}: not done in {POOL_TIMEOUT_S} s")
+            break
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def serial_run(worker, specs) -> tuple:
+    t0 = time.perf_counter()
+    out = [worker.run_job(s) for s in specs]
+    return time.perf_counter() - t0, out
+
+
+def check_same(got, want, what: str) -> bool:
+    same = [g == w for g, w in zip(got, want)]
+    expect(len(got) == len(want) and all(same),
+           f"{what}: {same.count(False)} of {len(want)} pool PNGs differ from run_job's")
+    return all(same)
+
+
+def pool_path(root: str, ckpt: str, mode_lora: str, onnx: str, per_request) -> tuple:
+    """The pool over two modes of one SD1.5 directory (``a`` plain with a
+    512x768 background bucket, ``b`` with the mode LoRA), cache 2, batch 8:
+    requests while ``a``'s background bucket is captured and an SR job runs,
+    16 solo requests and 8 coalesced ones against serial run_job, a tenant
+    request, switches from the cache and cold, evict; every PNG byte-equal to
+    run_job's on the same worker."""
+    modes = testing.write_modes_yaml(os.path.join(root, "modes.yaml"), {
+        "a": {"model": ckpt, "defaults": {"size": f"{SIZE}x{SIZE}", "steps": STEPS,
+                                          "warmup_buckets": [f"{SIZE}x{SIZE * 3 // 2}"]}},
+        "b": {"model": ckpt, "loras": [{"file": mode_lora, "strength": 0.8}],
+              "defaults": {"size": f"{SIZE}x{SIZE}", "steps": STEPS}}}, default_mode="a")
+    os.environ["DREAMLAB_MODE_CACHE"] = "2"
+    os.environ["DREAMLAB_MAX_BATCH"] = str(POOL_BATCH)
+    reset_model_registry()
+    registry = get_model_registry("cuda")
+    estimate = registry.estimate_model_hbm(ckpt)
+    sr = SuperResService(model_path=onnx)
+    out = {"estimate_model_hbm": estimate}
+    pool = None
+    try:
+        used0 = used_bytes()
+        t0 = time.perf_counter()
+        pool = WorkerPool(mode_config=ModeConfigManager(modes), registry=registry, queue_max=64)
+        t_built = time.perf_counter()
+        out["cold_load_a_s"] = t_built - t0
+        wa = pool.worker
+        pipe_a = wa.pipeline
+        s = pipe_a.vae_scale
+        background_key = (1, SIZE * 3 // 2 // s, SIZE // s, STEPS)  # (batch, h_lat, w_lat, steps)
+
+        # (1) requests and an SR job while a's 512x768 bucket is captured behind them
+        def background_done():
+            return any(k[:4] == background_key for k in list(pipe_a._compiled))
+
+        pool.max_batch = 1  # solo requests (pipelined) until the coalesced batch below
+        sr_fut = sr.submit(encode_png(test_image(SIZE, SIZE, 5)), magnitude=1)
+        specs = [pool_spec(500 + i) for i in range(6)]
+        _, during, settled = pool_run(pool, specs, t_built)
+        wait_for(background_done, "a's background bucket")
+        ready_s = time.perf_counter() - t_built
+        sr_png, _ = sr_fut.result(timeout=POOL_TIMEOUT_S)
+        check_png(sr_png, 3 * SIZE)
+        background = next(p for k, p in pipe_a._compiled.items() if k[:4] == background_key)
+        # times after the pool's constructor returned, which started the capture
+        out["background"] = {"capture_s": background.capture_s,
+                             "reserved_bytes": background.reserved_bytes,
+                             "bucket_ready_after_s": ready_s, "requests_settled_after_s": settled}
+        out["used_after_a_bytes"] = used_bytes() - used0
+        check_same(during, [wa.run_job(s) for s in specs],
+                   "requests during the background capture and an SR job")
+
+        # (2) 16 back-to-back solo requests (pipelined) against serial run_job
+        specs = [pool_spec(600 + i) for i in range(POOL_SOLO)]
+        rounds = []
+        for order in ("serial", "pool", "pool", "serial"):
+            if order == "serial":
+                secs, pngs = serial_run(wa, specs)
+                want = pngs
+            else:
+                secs, pngs, _ = pool_run(pool, specs)
+                check_same(pngs, want, "16 solo requests")
+            rounds.append({order: POOL_SOLO / secs})
+        prof = profile(lambda: pool_run(pool, specs))
+        out["solo"] = {"img_per_s": rounds, "profile_16": {
+            k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernel_launches")}}
+        census = profile(lambda: pool.submit_job(GenerationJob(specs[0])).result(
+            timeout=POOL_TIMEOUT_S))
+        ran = {k: census["port_kernels"].get(k, 0) for k in ("flash_mma_kernel",
+                                                             "gn_cluster_kernel")}
+        expect(ran == {"flash_mma_kernel": per_request["flash"],
+                       "gn_cluster_kernel": per_request["gn"]},
+               f"a pool-dispatched request ran {census['port_kernels']}")
+        out["census_profile"] = {"port_kernels": census["port_kernels"],
+                                 "device_busy_ms": census["device_busy_ms"],
+                                 "wall_ms": census["wall_ms"]}
+
+        # (3) 8 requests coalesced into one pipelined run_jobs batch
+        pool.max_batch = POOL_BATCH
+        batch = [pool_spec(700 + i) for i in range(POOL_BATCH)]
+        solo = [wa.run_job(s) for s in batch]  # a batch row equals its solo run
+        wa.run_jobs(batch)  # captures the batch bucket
+        t0 = time.perf_counter()
+        serial_batch = wa.run_jobs(batch)
+        serial_s = time.perf_counter() - t0
+        check_same(serial_batch, solo, "serial run_jobs rows against run_job")
+        calls = []
+        dispatch = wa.run_jobs_pipelined
+        wa.run_jobs_pipelined = lambda s: calls.append(len(s)) or dispatch(s)
+        gate = pool_stall(pool)
+        futs = [pool.submit_job(GenerationJob(s)) for s in batch]
+        t0 = time.perf_counter()
+        gate.set()
+        coalesced = [f.result(timeout=POOL_TIMEOUT_S) for f in futs]
+        pool_s = time.perf_counter() - t0
+        del wa.run_jobs_pipelined
+        expect(calls == [POOL_BATCH], f"the pool dispatched {calls}, expected one batch of 8")
+        check_same(coalesced, solo, "the coalesced batch")
+        out["coalesced"] = {"dispatches": calls, "img_per_s_pool": POOL_BATCH / pool_s,
+                            "img_per_s_serial_run_jobs": POOL_BATCH / serial_s}
+
+        # (4) a tenant request for b while a is active (b built cold as a tenant)
+        t_spec = pool_spec(800, mode="b")
+        used1 = used_bytes()
+        t0 = time.perf_counter()
+        tenant_png = pool.submit_job(GenerationJob(t_spec)).result(timeout=POOL_TIMEOUT_S)
+        out["tenant_first_request_s"] = time.perf_counter() - t0
+        out["tenant_build_used_bytes"] = used_bytes() - used1
+        expect(pool.current_mode == "a" and pool.get_status()["warm_modes"] == ["b"],
+               f"after a tenant request: {pool.get_status()}")
+        wb = pool._mode_cache["b"][1]
+        check_same([tenant_png], [wb.run_job(t_spec)], "the tenant request")
+        expect(tenant_png != wa.run_job(pool_spec(800))[0], "mode b's LoRA changed nothing")
+
+        # (5) a -> b -> a from the cache; evict b; a -> b cold; b -> a from the cache
+        switch_ms = {}
+
+        def switch(name, label):
+            t0 = time.perf_counter()
+            pool.switch_mode(name).result(timeout=POOL_TIMEOUT_S)
+            switch_ms.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+
+        switch("b", "from_cache")
+        expect(pool.worker is wb, "the switch to b rebuilt the warm worker")
+        check_same([pool.submit_job(GenerationJob(pool_spec(800))).result(
+            timeout=POOL_TIMEOUT_S)], [tenant_png], "b after the switch")
+        switch("a", "from_cache")
+        expect(pool.worker is wa, "the switch back to a rebuilt the warm worker")
+        buckets = len(wb.pipeline._compiled)
+        before = used_bytes()
+        expect(pool.evict_mode("b"), "evict_mode(b) evicted nothing")
+        out["evict_freed_bytes"] = before - used_bytes()
+        expect(registry.get_model("b") is None and wb.pipeline is None,
+               "the evicted worker is still registered or holds its pipeline")
+        used2 = used_bytes()
+        switch("b", "cold")
+        out["cold_switch_used_bytes"] = used_bytes() - used2
+        wb2 = pool.worker
+        check_same([pool.submit_job(GenerationJob(pool_spec(800))).result(
+            timeout=POOL_TIMEOUT_S)], [tenant_png], "b rebuilt cold")
+        switch("a", "from_cache")
+        out["switch_ms"] = switch_ms
+        out["modes"] = {name: {"registered_bytes": registry.get_model(name).hbm_bytes,
+                               "estimate_model_hbm": estimate}
+                        for name in ("a", "b")}
+        out["buckets_captured"] = buckets + len(pipe_a._compiled) + len(wb2.pipeline._compiled)
+        out["status"] = pool.get_status()
+    finally:
+        if pool is not None:
+            pool.shutdown(drain=False, timeout=10)
+        sr.shutdown()
+    return out, during[0][0]
+
+
+def sr_path(onnx: str, png: bytes) -> dict:
+    """One pool PNG through the service at magnitude 1 (9 tiles) and 2 (49
+    tiles), the card's luma against the CPU's fp32 forward (within 1 level),
+    the colour path against the CPU's (byte-equal), times and peak memory;
+    the bicubic mode against the CPU's."""
+    cpu_params = load_sr_params(SUPERRES, onnx)
+    svc = SuperResService(model_path=onnx)
+    out = {"model_desc": svc.model_desc, "upscale": svc.cfg.upscale}
+    try:
+        worker = SuperResWorker(svc.params, svc.cfg)
+        t0 = time.perf_counter()
+        rgb = decode_rgb(png)
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0)
+        luma, colour, passes_ms, encode_ms = {}, {}, {}, {}
+        img = torch.from_numpy(rgb).cuda()
+        for magnitude in (1, 2):
+            # the luma of this pass, on the card and on the CPU
+            ycc = image_ops.rgb_to_ycbcr(img)
+            y_card = superres.upscale_luma(svc.params, svc.cfg, ycc[..., 0].float() / 255.0)
+            y_cpu = superres.upscale_luma(cpu_params, svc.cfg, ycc[..., 0].cpu().float() / 255.0)
+            err = (y_card.cpu() - y_cpu).abs().max().item()
+            levels = (torch.round(y_card.cpu() * 255) - torch.round(y_cpu * 255)).abs().max().item()
+            expect(levels <= 1, f"SR pass {magnitude}: the card's luma is {levels} levels off "
+                                "the CPU's")
+            luma[magnitude] = {"max_abs_err": err, "max_levels": levels}
+            size = (img.shape[1] * 3, img.shape[0] * 3)
+            same = {"rgb_to_ycbcr": torch.equal(ycc.cpu(), image_ops.rgb_to_ycbcr(img.cpu())),
+                    "resize_bicubic": torch.equal(
+                        image_ops.resize_bicubic(ycc[..., 1:], size).cpu(),
+                        image_ops.resize_bicubic(ycc[..., 1:].cpu(), size))}
+            nxt = worker.upscale_once(img)
+            same["ycbcr_to_rgb"] = torch.equal(
+                image_ops.ycbcr_to_rgb(image_ops.rgb_to_ycbcr(nxt)).cpu(),
+                image_ops.ycbcr_to_rgb(image_ops.rgb_to_ycbcr(nxt).cpu()))
+            expect(all(same.values()), f"SR pass {magnitude}: colour path {same}")
+            colour[magnitude] = same
+            passes_ms[magnitude] = {"upscale_once_ms": device_ms(lambda: worker.upscale_once(img), 3),
+                                    "forward_ms": device_ms(lambda: superres.upscale_luma(
+                                        svc.params, svc.cfg, ycc[..., 0].float() / 255.0), 3),
+                                    "tiles": math.ceil(img.shape[0] / svc.cfg.tile)
+                                    * math.ceil(img.shape[1] / svc.cfg.tile),
+                                    "input": list(img.shape)}
+            img = nxt
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        results = {}
+        for magnitude in (1, 2):
+            t0 = time.perf_counter()
+            data, passes = svc.submit(png, magnitude=magnitude).result(timeout=POOL_TIMEOUT_S)
+            results[magnitude] = {"service_ms": 1e3 * (time.perf_counter() - t0),
+                                  "passes": passes, "bytes": len(data)}
+            check_png(data, SIZE * 3 ** magnitude)
+            t0 = time.perf_counter()
+            up = decode_png(data)
+            results[magnitude]["decode_out_ms"] = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            encode_png(up)
+            encode_ms[magnitude] = 1e3 * (time.perf_counter() - t0)
+            if magnitude == 2:
+                expect(np.array_equal(up, img.cpu().numpy()),
+                       "the service's magnitude-2 PNG differs from the worker's two passes")
+        out["peak_bytes_above_baseline"] = torch.cuda.max_memory_allocated() - base
+        out.update(luma=luma, colour_path_equal=colour, pass_ms=passes_ms, service=results,
+                   encode_ms=encode_ms)
+        cpu_bicubic = SuperResWorker(None, SUPERRES, device="cpu").upscale_rgb(rgb, 1)[0]
+        bicubic = SuperResService()
+        try:
+            data, _ = bicubic.submit(png, magnitude=1).result(timeout=POOL_TIMEOUT_S)
+        finally:
+            bicubic.shutdown()
+        out["bicubic_equal_cpu"] = np.array_equal(decode_png(data), cpu_bicubic)
+        expect(out["bicubic_equal_cpu"], "the card's bicubic mode differs from the CPU's")
+    finally:
+        svc.shutdown()
+    return out
+
+
+def pool_sr_phase(root: str, per_request) -> tuple:
+    """Phase 6b on the loader phase's directory and mode LoRA: the pool path
+    with its launch counts reset before it and read after it (each captured
+    bucket: an eager run and a capture), then the SR path on one of its
+    PNGs. Returns the phase's line and the pool path's launches."""
+    onnx = testing.write_espcn_onnx(os.path.join(root, "super-resolution-10.onnx"),
+                                    testing.random_espcn(SUPERRES, seed=10))
+    t0 = time.perf_counter()
+    reset_counts()
+    pool_out, png = pool_path(root, os.path.join(root, "sd15"),
+                              os.path.join(root, "mode_lora.safetensors"), onnx, per_request)
+    launched = counts()
+    n = pool_out["buckets_captured"]
+    expect(n > 0 and launched == {k: CAPTURE_RUNS * n * v for k, v in per_request.items()},
+           f"the pool path launched {launched}, expected {CAPTURE_RUNS} x {n} buckets x "
+           f"{per_request}")
+    pool_out.update(launches=launched, path_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sr_out = sr_path(onnx, png)
+    sr_out["path_s"] = time.perf_counter() - t0
+    return {"pool": pool_out, "superres": sr_out}, launched
 
 
 # ---------------------------------------------------------------------------
@@ -2064,10 +2418,15 @@ def main() -> int:
                        "kernel_ms": prof1["device_busy_ms"],
                        "kernel_launches": prof1["kernel_launches"]}}})
 
-    t0 = time.perf_counter()
-    loaded = loader_phase(per_request)
-    end_phase("loader")
-    log({"loader": {**loaded, "phase_s": time.perf_counter() - t0, "card": smi}})
+    with tempfile.TemporaryDirectory(prefix="dreamlab_ckpt_") as root:
+        t0 = time.perf_counter()
+        loaded = loader_phase(per_request, root)
+        end_phase("loader")
+        log({"loader": {**loaded, "phase_s": time.perf_counter() - t0, "card": smi}})
+        t0 = time.perf_counter()
+        pool_line, pool_launches = pool_sr_phase(root, per_request)
+        end_phase("pool and super-resolution")
+        log({"pool_sr": {**pool_line, "phase_s": time.perf_counter() - t0, "card": smi}})
 
     enc_rows, enc_launches, enc_errs, extras_line = sd15_extras_phase(per_request, seen)
     log(extras_line)
@@ -2091,6 +2450,7 @@ def main() -> int:
     log({"total_s": time.perf_counter() - start})
 
     kernels = (kernel_entries(rows, result["launches"], errs)
+               + kernel_entries(rows, pool_launches, errs, "_pool", ("flash", "gn"))
                + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn"))
                + kernel_entries(enc_rows, enc_launches, enc_errs, "_encoder", ("gn",))
                + kernel_entries(*xl_i2i, "_encoder_sdxl", ("gn",))

@@ -1,7 +1,8 @@
 """Dream Lab on PyTorch and CUDA: the port of ``dreamlab_tpu`` to one NVIDIA H100.
 
 Module names mirror the JAX package (``models``, ``ops``, ``scheduler``,
-``utils``, ``engine``, ``pipeline``), so each counterpart is easy to find.
+``utils``, ``engine``, ``serving``, ``pipeline``), so each counterpart is
+easy to find.
 The port imports ``torch`` and numpy and nothing of JAX or ``dreamlab_tpu``:
 it keeps its own copies of the pure-Python pieces it needs.
 

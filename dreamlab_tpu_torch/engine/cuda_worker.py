@@ -4,14 +4,19 @@ One worker owns one loaded ``LCMPipeline`` and implements the
 ``PipelineWorker`` protocol: ``run_job(spec) -> (png, seed)`` and
 ``run_job_with_latents`` with the [1, 4, 8, 8] float16 fingerprint
 (512 bytes), plus the pool's coalescing interface ``batchable`` /
-``run_jobs`` and ``run_img2img`` (img2img and inpainting). Batching never
+``run_jobs``, its dispatch-now, finalize-later twins ``run_job_pipelined`` /
+``run_jobs_pipelined`` (each returns a ``finalize()`` that waits for the
+images and encodes the PNGs, so the pool hides one request's copy and
+encoding behind the next one's replay), and ``run_img2img`` (img2img and
+inpainting). Batching never
 changes a request's output: each row's noise comes from its own seed, as in
 a solo run, its guidance and negative prompt are its own, and the library
 calls run one row at a time (``ops/batching.py``), the doubled batch of
 classic CFG included.
 
 On the card each request replays its shape bucket's CUDA graph
-(``pipeline.py``); the worker's lock serializes capture and replay.
+(``pipeline.py``); the worker's lock serializes its requests, and every
+launch holds the device lock shared (``pipeline.device_lock``).
 ``warmup=True`` captures the ``default_size`` bucket (batch 1, 4 steps)
 when the worker is built.
 
@@ -30,6 +35,12 @@ instead of swapping the tree by pointer as the reference does:
 - the cache entries and the base copies are registered with the model
   registry under the bytes they hold ("lora:..." and "lora-base:..."),
   where the reference registers a whole UNet per entry.
+
+A replay reads the live leaves when the card runs it, not when it is
+queued (the JAX package's in-flight call holds the buffers it was given),
+so merges and restores are queued on the stream the replays run on: a
+request's restore runs after its replay, and the next style's merge after
+that, whether the request was waited for or is still in flight.
 
 ControlNet hints (``spec.control_image``, scaled by
 ``spec.controlnet_scale`` or the mode's ``controlnet_scale``) go to the
@@ -50,13 +61,13 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import lora
-from ..pipeline import LCMPipeline
+from ..pipeline import LCMPipeline, device_lock
 from ..utils.png import encode_png
 from .base import GenSpec
 from .model_registry import get_model_registry
@@ -132,32 +143,33 @@ class CudaPipelineWorker:
             if sdef.required_cross_attention_dim not in (None, cad):
                 raise ValueError(f"style {style!r} requires cross_attention_dim="
                                  f"{sdef.required_cross_attention_dim}, model has {cad}")
-        params = self.pipeline.unet_params
-        # back to base first: the next style may not touch every leaf this one wrote
-        lora.write_leaves(params, {p: self._base[p] for p in self._active_paths})
-        self._active_paths = ()
-        if style is None:
-            return
-        scale = sdef.strength_for_level(level)
-        t0 = time.perf_counter()
-        key = (sdef.path, scale)
-        cached = self._merged_cache.get(key)
-        if cached is not None:
-            self._merged_cache.move_to_end(key)
-            values = cached[1]
-        else:
-            if sdef.path not in self._style_cache:
-                self._style_cache[sdef.path] = lora.load_lora(sdef.path)
-            modules = self._style_cache[sdef.path].unet
-            self._keep_base(params, modules)
-            values = lora.merged_leaves(params, modules, scale, base=self._base)
-        lora.write_leaves(params, values)
-        self._active_paths = tuple(values)
-        if cached is None:
-            self._merged_put(key, style, level, values)
-        logger.info("style %s level %d (scale %.2f) %s in %.0f ms", style, level, scale,
-                    "applied from the cache" if cached is not None else "merged",
-                    1e3 * (time.perf_counter() - t0))
+        with device_lock(self.pipeline.device).shared():
+            params = self.pipeline.unet_params
+            # back to base first: the next style may not touch every leaf this one wrote
+            lora.write_leaves(params, {p: self._base[p] for p in self._active_paths})
+            self._active_paths = ()
+            if style is None:
+                return
+            scale = sdef.strength_for_level(level)
+            t0 = time.perf_counter()
+            key = (sdef.path, scale)
+            cached = self._merged_cache.get(key)
+            if cached is not None:
+                self._merged_cache.move_to_end(key)
+                values = cached[1]
+            else:
+                if sdef.path not in self._style_cache:
+                    self._style_cache[sdef.path] = lora.load_lora(sdef.path)
+                modules = self._style_cache[sdef.path].unet
+                self._keep_base(params, modules)
+                values = lora.merged_leaves(params, modules, scale, base=self._base)
+            lora.write_leaves(params, values)
+            self._active_paths = tuple(values)
+            if cached is None:
+                self._merged_put(key, style, level, values)
+            logger.info("style %s level %d (scale %.2f) %s in %.0f ms", style, level, scale,
+                        "applied from the cache" if cached is not None else "merged",
+                        1e3 * (time.perf_counter() - t0))
 
     def _registry(self):
         """The model registry of the card this worker's pipeline is on."""
@@ -209,14 +221,14 @@ class CudaPipelineWorker:
     # requests
     # ------------------------------------------------------------------
 
-    def _generate(self, spec: GenSpec):
+    def _generate(self, spec: GenSpec, pipelined: bool = False):
         width, height = spec.dims()
         seed = spec.seed if spec.seed is not None else _new_seed()
         common = dict(height=height, width=width,
                       num_inference_steps=spec.num_inference_steps,
                       original_inference_steps=spec.original_inference_steps,
                       guidance_scale=spec.guidance_scale,
-                      negative_prompt=spec.negative_prompt, seed=seed)
+                      negative_prompt=spec.negative_prompt, seed=seed, pipelined=pipelined)
         hint_kw, progress_kw = {}, {}
         if spec.control_image is not None:
             hint_kw = dict(control_image=spec.control_image,
@@ -242,9 +254,20 @@ class CudaPipelineWorker:
                 self._apply_style(None, 0)
 
     def run_job(self, spec: GenSpec) -> Tuple[bytes, int]:
-        res = self._generate(spec)
-        meta = {"parameters": _parameters_text(spec, res.seed, spec.num_inference_steps)}
-        return encode_png(res.images[0], meta), res.seed
+        return self.run_job_pipelined(spec)()
+
+    def run_job_pipelined(self, spec: GenSpec) -> Callable[[], Tuple[bytes, int]]:
+        """Dispatch now, finalize later: the request is queued on the card
+        (its style restored behind it) and the returned ``finalize()`` waits
+        for its images and encodes the PNG, as ``run_job`` returns it."""
+        res = self._generate(spec, pipelined=True)
+
+        def finalize() -> Tuple[bytes, int]:
+            res.wait()
+            meta = {"parameters": _parameters_text(spec, res.seed, spec.num_inference_steps)}
+            return encode_png(res.images[0], meta), res.seed
+
+        return finalize
 
     def run_job_with_latents(self, spec: GenSpec) -> Tuple[bytes, int, bytes]:
         res = self._generate(spec)
@@ -298,8 +321,16 @@ class CudaPipelineWorker:
     def run_jobs(self, specs) -> List[Tuple[bytes, int]]:
         """Coalesced execution: one batched call for compatible specs.
         Returns [(png, seed), ...] in input order."""
+        return self.run_jobs_pipelined(specs)()
+
+    def run_jobs_pipelined(self, specs) -> Callable[[], List[Tuple[bytes, int]]]:
+        """Dispatch a coalesced batch now, finalize later: the returned
+        ``finalize()`` waits for the images and gives [(png, seed), ...] in
+        input order. Each row's initial latents and step noises come from
+        its own seed, as in a solo run, so batching never changes a
+        request's image."""
         if len(specs) == 1:
-            return [self.run_job(specs[0])]
+            return self.run_job_pipelined(specs[0])
         first = specs[0]
         if not all(self.batchable(first, s) for s in specs[1:]):
             raise ValueError("run_jobs takes mutually batchable specs")
@@ -326,19 +357,28 @@ class CudaPipelineWorker:
                     aesthetic_score=first.aesthetic_score,
                     latents=np.stack(lats),  # raw noise; generate applies the init sigma
                     step_noises=np.stack(noises, axis=1),
+                    pipelined=True,
                 )
             finally:
                 self._apply_style(None, 0)
-        return [
-            (encode_png(res.images[i], {"parameters": _parameters_text(s, seed, steps)}), seed)
-            for i, (s, seed) in enumerate(zip(specs, seeds))
-        ]
+
+        def finalize() -> List[Tuple[bytes, int]]:
+            res.wait()
+            return [(encode_png(res.images[i], {"parameters": _parameters_text(s, seed, steps)}),
+                     seed) for i, (s, seed) in enumerate(zip(specs, seeds))]
+
+        return finalize
 
     def close(self) -> None:
-        """Unregister the style cache and base copies and drop the pipelines."""
+        """Unregister the style cache and base copies, drop the pipelines'
+        graphs (their pools go back to the card at the next
+        ``torch.cuda.empty_cache``) and the pipelines."""
         self._merged_clear()
         self._base.clear()
         self._style_cache.clear()
+        for pipe in (self.pipeline, self.refiner):
+            if pipe is not None:
+                pipe.release_graphs()
         self.pipeline = self.refiner = None
 
 

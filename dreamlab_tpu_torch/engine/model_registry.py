@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -81,6 +82,14 @@ class ModelRegistry:
         with self._lock:
             return self._models.pop(name, None) is not None
 
+    def clear(self):
+        with self._lock:
+            self._models.clear()
+
+    def get_model(self, name: str) -> Optional[LoadedModel]:
+        with self._lock:
+            return self._models.get(name)
+
     def list_models(self) -> List[LoadedModel]:
         with self._lock:
             return list(self._models.values())
@@ -104,6 +113,24 @@ class ModelRegistry:
         if not total:
             return True  # no stats: don't block loading
         return self.get_used_hbm() + required_bytes <= total * HEADROOM
+
+    @staticmethod
+    def estimate_model_hbm(model_path: str, dtype_bytes: int = 2) -> int:
+        """The JAX package's estimate from the checkpoint files: their bytes
+        x1.2 (activations and fragmentation), halved when serving 2-byte
+        weights from what it takes for fp32 files. It does not see a
+        mode's graph pool (a captured bucket's activations), which the pool
+        measures instead, as the device's used bytes before and after the
+        build and its warm-up."""
+        total = 0
+        if os.path.isfile(model_path):  # single-file checkpoints
+            total = os.path.getsize(model_path)
+        else:
+            for root, _, files in os.walk(model_path):
+                for f in files:
+                    if f.endswith((".safetensors", ".bin", ".ckpt")):
+                        total += os.path.getsize(os.path.join(root, f))
+        return int(total * 1.2 * (dtype_bytes / 4))
 
     def get_hbm_stats(self) -> Dict:
         """The ``/api/vram`` payload."""

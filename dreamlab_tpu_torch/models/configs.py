@@ -1,4 +1,5 @@
-"""Model architecture configs: the SD1.5 and SDXL presets and their tiny test variants.
+"""Model architecture configs: the SD1.5, SDXL and super-resolution presets and
+their tiny test variants.
 
 A copy of the dataclasses of ``dreamlab_tpu/models/configs.py`` (importing
 that module pulls in JAX through ``dreamlab_tpu/models/__init__.py``). The
@@ -83,6 +84,18 @@ class VAEConfig:
         return 2 ** (len(self.block_out_channels) - 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class SuperResConfig:
+    """Sub-pixel CNN (ESPCN, the ONNX model zoo's "super-resolution-10"):
+    the luma plane in, 3x per pass through depth-to-space, over tiles of
+    ``tile`` squared (224 -> 672)."""
+
+    upscale: int = 3
+    channels: Tuple[int, ...] = (64, 64, 32)
+    kernel_sizes: Tuple[int, ...] = (5, 3, 3, 3)
+    tile: int = 224
+
+
 # ---------------------------------------------------------------------------
 # Presets
 # ---------------------------------------------------------------------------
@@ -92,6 +105,8 @@ SD15_TEXT = CLIPTextConfig()
 SD15_UNET = UNetConfig()
 
 SD15_VAE = VAEConfig()
+
+SUPERRES = SuperResConfig()
 
 SDXL_TEXT_L = CLIPTextConfig(penultimate=True)  # CLIP ViT-L, hidden 768
 

@@ -77,10 +77,28 @@ its program records an external CUDA event after each step (and, for
 thread waits on event i while the replay runs on, reads slot i on a side
 stream and hands it to ``_progress_emit``, which filters, orders and guards
 the calls as the JAX package's trampoline does.
+
+Pipelined dispatch (``generate(pipelined=True)``, the worker pool's
+overlap): the call returns once the replay and the copies of its images and
+latents into pinned host buffers of the request's own are queued, and
+``result.wait()`` blocks until they are on the host. The inputs are staged
+through pinned buffers on the replay's stream, so stream order alone keeps
+request i+1's inputs from landing before replay i has read them and its
+outputs from being overwritten before they are copied out. A request with a
+progress callback runs synchronously, as in the JAX package.
+
+Threads: the launches of one device go through ``device_lock(device)``, a
+reader-writer lock. A graph capture holds it exclusively; every other
+launch section (a replay's dispatch, an eager run, a style merge, a
+super-resolution forward) holds it shared and releases it before waiting on
+the host. So a bucket can be captured on one thread while others replay,
+merge and upscale, and none of their launches lands inside the capture.
+One pipeline's captures and dispatches are serialized by its own lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -141,11 +159,98 @@ class PipelineBundle:
 
 @dataclasses.dataclass
 class GenerationResult:
+    """``images`` and ``latents`` are host arrays once the result is ready:
+    at once, or after ``wait()`` for a pipelined one (None until then)."""
+
     images: Optional[np.ndarray]  # [B, H, W, 3] uint8; None for a segment that ends early
     seed: int
     latents: Optional[np.ndarray]  # [B, h, w, 4] fp32 final denoised latents; None as images
     # a segment that ends early: its fp32 carry [B, h, w, 4] on the device
     state_device: Optional[torch.Tensor] = None
+    # a pipelined result: (event after the copies, pinned images, pinned latents)
+    _pending: Optional[Tuple[Any, torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False)
+
+    def wait(self) -> "GenerationResult":
+        """Block until the images and latents are on the host (at once unless
+        the result is pipelined)."""
+        if self._pending is not None:
+            ready, images, latents = self._pending
+            ready.synchronize()
+            self.images, self.latents = images.numpy(), latents.numpy()
+            self._pending = None
+        return self
+
+
+class DeviceLock:
+    """A reader-writer lock over one device's launches: ``exclusive()`` for a
+    graph capture, ``shared()`` for every other launch section. Shared holds
+    nest within a thread, and count as nothing inside the thread's own
+    exclusive hold; a waiting capture admits no new shared holder, so a
+    steady stream of launches cannot starve it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer: Optional[int] = None  # the exclusive holder's thread id
+        self._writers_waiting = 0
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._local, "depth", 0)
+        mine = self._writer == threading.get_ident()
+        if depth == 0 and not mine:
+            with self._cond:
+                while self._writer is not None or self._writers_waiting:
+                    self._cond.wait()
+                self._readers += 1
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if depth == 0 and not mine:
+                with self._cond:
+                    self._readers -= 1
+                    if not self._readers:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        if self._writer == me:
+            yield
+            return
+        if getattr(self._local, "depth", 0):
+            raise RuntimeError("a thread that holds the device lock shared cannot take it "
+                               "exclusively")
+        with self._cond:
+            self._writers_waiting += 1
+            while self._writer is not None or self._readers:
+                self._cond.wait()
+            self._writers_waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+
+
+_device_locks: Dict[torch.device, DeviceLock] = {}
+_device_locks_guard = threading.Lock()
+
+
+def device_lock(device) -> DeviceLock:
+    """The process's launch lock of ``device`` (a CUDA device without an
+    index is the current one)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _device_locks_guard:
+        return _device_locks.setdefault(device, DeviceLock())
 
 
 @dataclasses.dataclass
@@ -251,25 +356,45 @@ def _device_inputs(pipe: "LCMPipeline", staged: _Staged) -> Dict[str, torch.Tens
     return x
 
 
-def _host_results(key: BucketKey, outputs):
-    """(images, latents, carry) of a program's outputs: a segment that ends
-    early keeps its carry on the device (a copy of it, where a graph's
-    output would be overwritten by the bucket's next replay), the others
-    come to the host."""
-    if key[7] == "latent":
-        return None, None, outputs[0].clone()
+def _pinned(v) -> torch.Tensor:
+    """A staged input ready for an asynchronous copy to the device: a host
+    array copied into pinned memory, a device tensor (a segment's carry) as
+    it is. The caching host allocator keeps a pinned block from reuse until
+    the copies queued from it have run."""
+    if isinstance(v, torch.Tensor):
+        return v
+    src = torch.from_numpy(v)
+    return torch.empty_like(src, pin_memory=True).copy_(src)
+
+
+def _result(staged: _Staged, outputs) -> GenerationResult:
+    """A program's outputs as a result. A segment that ends early keeps its
+    carry on the device (a copy of it, where a graph's output would be
+    overwritten by the bucket's next replay). On the card the images and
+    latents are queued for copying into pinned host buffers of the
+    request's own, on the current stream, and are read at ``wait()``; on the
+    CPU they are the host arrays."""
+    if staged.key[7] == "latent":
+        return GenerationResult(None, staged.seed, None, state_device=outputs[0].clone())
     images, latents = outputs
-    return images.cpu().numpy(), latents.cpu().numpy(), None
+    if images.device.type != "cuda":
+        return GenerationResult(images.numpy(), staged.seed, latents.numpy())
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in (images, latents)]
+    ready = torch.cuda.Event()
+    ready.record()
+    return GenerationResult(None, staged.seed, None, _pending=(ready, *host))
 
 
 class _EagerProgram:
     """A bucket's program run as called: the CPU's program, and on the card
-    the private eager route (``LCMPipeline._generate_eager``)."""
+    the private eager route (``LCMPipeline._generate_eager``), which holds
+    the device lock shared for the whole run, host waits included."""
 
     def __init__(self, key: BucketKey):
         self.key = key
 
-    def __call__(self, pipe: "LCMPipeline", staged: _Staged):
+    def __call__(self, pipe: "LCMPipeline", staged: _Staged) -> GenerationResult:
         progress = _extras(self.key).get("progress")
         sink = None
         if progress is not None:
@@ -279,25 +404,28 @@ class _EagerProgram:
                 pipe._progress_emit(staged.progress_token, i, timesteps[i],
                                     lat.cpu().numpy() if progress == "latents" else None)
 
-        with torch.inference_mode():
-            return _host_results(self.key, pipe._program(self.key, _device_inputs(pipe, staged),
-                                                         progress=sink))
+        with torch.inference_mode(), device_lock(pipe.device).shared():
+            return _result(staged, pipe._program(self.key, _device_inputs(pipe, staged),
+                                                 progress=sink))
 
 
 class _GraphProgram:
     """A bucket's program as one captured CUDA graph.
 
     Static inputs live at fixed addresses: each call copies the staged host
-    arrays (a segment's carry: device to device) into them (device RNG draws
-    straight into the noise inputs), replays the graph, and copies images
-    and latents to the host, or a segment's carry to a tensor of its own,
-    before it returns, since the next replay overwrites them. Capture
-    follows one eager run on a side stream, which builds the kernel library,
-    sets the kernels' attributes and lets cuBLAS and cuDNN settle, none of
-    which may happen while capturing. The graphs of one pipeline share its
-    memory pool; the caller serializes capture and replay (the worker's
-    lock). The program keeps no reference to the pipeline: deleting the
-    pipeline frees its graphs and their pool.
+    arrays into them from pinned buffers, asynchronously on the current
+    stream (a segment's carry: device to device; device RNG draws straight
+    into the noise inputs), replays the graph, and queues the copies of
+    images and latents to the request's own pinned host buffers (a
+    segment's carry: to a tensor of its own), all before the next replay
+    can overwrite them. Capture follows one eager run on a side stream,
+    which builds the kernel library, sets the kernels' attributes and lets
+    cuBLAS and cuDNN settle, none of which may happen while capturing; it
+    holds the device lock exclusively and captures in the "thread_local"
+    error mode, so other threads' host waits stay legal meanwhile. The
+    graphs of one pipeline share its memory pool; the pipeline's lock
+    serializes its captures and dispatches. The program keeps no reference
+    to the pipeline: deleting the pipeline frees its graphs and their pool.
 
     A progress bucket records one external event per step (and copies each
     step's latents into its slot of a static buffer); after launching the
@@ -310,7 +438,7 @@ class _GraphProgram:
         key = staged.key
         progress = _extras(key).get("progress")
         self.events = self.slots = None
-        with torch.inference_mode():
+        with torch.inference_mode(), device_lock(dev).exclusive():
             self.inputs = _device_inputs(pipe, staged)
             if progress is not None:
                 self.timesteps = pipe._key_schedule(key).timesteps
@@ -330,7 +458,8 @@ class _GraphProgram:
             reserved = torch.cuda.memory_reserved(dev)
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pipe._graph_pool):
+            with torch.cuda.graph(self.graph, pool=pipe._graph_pool,
+                                  capture_error_mode="thread_local"):
                 self.outputs = pipe._program(key, self.inputs, progress=sink)
             torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
@@ -344,22 +473,26 @@ class _GraphProgram:
             self.slots[i].copy_(lat)
         self.events[i].record()
 
-    def __call__(self, pipe: "LCMPipeline", staged: _Staged):
+    def __call__(self, pipe: "LCMPipeline", staged: _Staged) -> GenerationResult:
+        lock = device_lock(pipe.device)
         with torch.inference_mode():
-            for name, v in staged.inputs.items():
-                self.inputs[name].copy_(_tensor(v))
-            if staged.key[5] == "device":
-                _draw_device_noise(staged.seed, self.inputs["lat0"], self.inputs["noises"],
-                                   staged.init_noise_sigma)
-            self.graph.replay()
+            with lock.shared():
+                for name, v in staged.inputs.items():
+                    self.inputs[name].copy_(_pinned(v), non_blocking=True)
+                if staged.key[5] == "device":
+                    _draw_device_noise(staged.seed, self.inputs["lat0"], self.inputs["noises"],
+                                       staged.init_noise_sigma)
+                self.graph.replay()
+                res = _result(staged, self.outputs)
             for i, event in enumerate(self.events or ()):
                 event.synchronize()  # step i is done; the replay runs on
                 lat = None
                 if self.slots is not None:
-                    with torch.cuda.stream(self.reader):  # not behind the replay
+                    # on a side stream: not behind the replay
+                    with lock.shared(), torch.cuda.stream(self.reader):
                         lat = self.slots[i].cpu().numpy()
                 pipe._progress_emit(staged.progress_token, i, self.timesteps[i], lat)
-            return _host_results(staged.key, self.outputs)
+        return res
 
 
 class LCMPipeline:
@@ -410,6 +543,16 @@ class LCMPipeline:
         self._progress_registry: Dict[int, Tuple[Callable, int, dict]] = {}
         self._progress_tokens = itertools.count(1)
         self._progress_lock = threading.Lock()
+        # serializes this pipeline's captures and dispatches (a pool's
+        # background warm-up captures beside its worker's requests)
+        self._lock = threading.Lock()
+
+    def release_graphs(self) -> None:
+        """Drop every bucket's program: the graphs, and with the last of them
+        the pipeline's graph pool (returned to the card at the next
+        ``torch.cuda.empty_cache``)."""
+        with self._lock:
+            self._compiled.clear()
 
     def set_controlnet(self, params, cfg: Optional[UNetConfig]) -> None:
         """Attach a ControlNet (``models/controlnet.py``'s tree and its
@@ -448,8 +591,9 @@ class LCMPipeline:
         self.controlnet_cfg = cfg
 
     def _drop_ctrl_buckets(self) -> None:
-        for key in [k for k in self._compiled if "ctrl" in _extras(k)]:
-            del self._compiled[key]
+        with self._lock:
+            for key in [k for k in self._compiled if "ctrl" in _extras(k)]:
+                del self._compiled[key]
 
     def _progress_emit(self, token: int, step: int, timestep, latents=None) -> None:
         """Deliver one step to the callback registered under ``token`` (the
@@ -887,8 +1031,9 @@ class LCMPipeline:
         t0 = time.perf_counter()
         staged = self._stage("warmup", height=height, width=width,
                              num_inference_steps=steps, seed=0, batch=batch, rng=rng)
-        program = self._get_compiled(staged)
-        program(self, staged)
+        with self._lock:
+            program = self._get_compiled(staged)
+            program(self, staged).wait()
         out = {"key": staged.key, "seconds": time.perf_counter() - t0,
                "capture_s": getattr(program, "capture_s", None),
                "reserved_bytes": getattr(program, "reserved_bytes", None)}
@@ -909,7 +1054,8 @@ class LCMPipeline:
                  callback_latents: bool = True,
                  control_image: Optional[np.ndarray] = None, controlnet_scale: float = 1.0,
                  segment: Optional[Tuple[int, int]] = None,
-                 latents_state: Optional[torch.Tensor] = None) -> GenerationResult:
+                 latents_state: Optional[torch.Tensor] = None,
+                 pipelined: bool = False) -> GenerationResult:
         """Generate images: uint8 [B, H, W, 3] plus the final latents.
 
         guidance_scale: a scalar or one value per row; it picks the guidance
@@ -934,12 +1080,16 @@ class LCMPipeline:
         0 takes the previous segment's as ``latents_state``. Segments draw
         the full run's host noise stream.
 
+        pipelined: return once the work is queued; ``result.wait()`` blocks
+        until the images and latents are on the host (ignored, as in the
+        JAX package, where a callback makes the call synchronous).
+
         On the card the request replays its bucket's CUDA graph, captured on
         the bucket's first request (or by ``warmup``); a failed capture or
         replay raises.
         """
         return self._generate(
-            prompt, False, callback, callback_steps, callback_latents, height=height,
+            prompt, False, callback, callback_steps, callback_latents, pipelined, height=height,
             width=width, num_inference_steps=num_inference_steps,
             original_inference_steps=original_inference_steps,
             guidance_scale=guidance_scale, negative_prompt=negative_prompt, seed=seed,
@@ -949,25 +1099,26 @@ class LCMPipeline:
 
     def _generate(self, prompt, eager: bool, callback: Optional[Callable] = None,
                   callback_steps: int = 1, callback_latents: bool = True,
-                  **kwargs) -> GenerationResult:
+                  pipelined: bool = False, **kwargs) -> GenerationResult:
         """``generate`` through the bucket's program, or with ``eager`` its
         function run eagerly; a callback is registered for the call only."""
         progress = "none" if callback is None else "latents" if callback_latents else "steps"
         staged = self._stage(prompt, progress=progress, **kwargs)
         if callback is not None:
+            pipelined = False  # a callback makes the call synchronous
             staged.progress_token = next(self._progress_tokens)
             with self._progress_lock:
                 self._progress_registry[staged.progress_token] = (
                     callback, max(1, callback_steps), {"last": -1})
         try:
-            program = _EagerProgram(staged.key) if eager else self._get_compiled(staged)
-            images, latents_np, state = program(self, staged)
+            with self._lock:
+                program = _EagerProgram(staged.key) if eager else self._get_compiled(staged)
+                res = program(self, staged)
         finally:
             if callback is not None:
                 with self._progress_lock:
                     self._progress_registry.pop(staged.progress_token, None)
-        return GenerationResult(images=images, seed=staged.seed, latents=latents_np,
-                                state_device=state)
+        return res if pipelined else res.wait()
 
     def img2img(self, prompt, init_image: np.ndarray, *, mask: Optional[np.ndarray] = None,
                 strength: float = 0.5, aesthetic_score: float = 6.0,
@@ -988,8 +1139,9 @@ class LCMPipeline:
             num_inference_steps=num_inference_steps,
             original_inference_steps=original_inference_steps, guidance_scale=guidance_scale,
             negative_prompt=negative_prompt, seed=seed)
-        images, latents_np, _ = self._get_compiled(staged)(self, staged)
-        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+        with self._lock:
+            res = self._get_compiled(staged)(self, staged)
+        return res.wait()
 
     def inpaint(self, prompt, init_image: np.ndarray, mask: np.ndarray, *,
                 strength: float = 1.0, **kwargs) -> GenerationResult:
@@ -1009,5 +1161,4 @@ class LCMPipeline:
     def _img2img_eager(self, prompt, init_image, **kwargs) -> GenerationResult:
         """``img2img`` without the bucket's graph (``_generate_eager``'s twin)."""
         staged = self._stage_img2img(prompt, init_image, **kwargs)
-        images, latents_np, _ = _EagerProgram(staged.key)(self, staged)
-        return GenerationResult(images=images, seed=staged.seed, latents=latents_np)
+        return _EagerProgram(staged.key)(self, staged).wait()

@@ -4,8 +4,11 @@ that saves a bundle as a diffusers-layout checkpoint directory (port of
 ``tests/test_loader.py``), random LoRA state dicts over every UNet
 projection the LoRA key map reaches (``random_lora``), random ControlNets
 and their diffusers directories (``random_controlnet``,
-``write_controlnet_dir``), and random SDXL refiner bundles
-(``random_refiner_bundle``).
+``write_controlnet_dir``), random SDXL refiner bundles
+(``random_refiner_bundle``), seeded ESPCN weights and their ``.onnx`` file
+(``random_espcn``, ``write_espcn_onnx``: a protobuf encoder of the port's
+own, so the chip run needs no ONNX package), and ``modes.yaml`` files
+(``write_modes_yaml``, without PyYAML).
 
 Speed does not depend on weight values, so the chip smoke run drives the real
 architectures with seeded random weights when no checkpoint is at hand. The
@@ -23,12 +26,14 @@ import dataclasses
 import json
 import os
 import re
-from typing import Dict
+import struct
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from . import lora
-from .models import clip_text, configs, controlnet, unet, vae
+from .models import clip_text, configs, controlnet, superres, unet, vae
 from .pipeline import PipelineBundle
 from .scheduler.lcm import LCMConfig
 from .utils.safetensors import save_file
@@ -605,3 +610,116 @@ def write_single_file(bundle: PipelineBundle, path: str) -> str:
     with open(stem + ".scheduler_config.json", "w") as f:
         json.dump(dataclasses.asdict(bundle.scheduler_cfg), f, indent=1)
     return path
+
+
+# ---------------------------------------------------------------------------
+# super-resolution weights as an ONNX file
+# ---------------------------------------------------------------------------
+
+
+def random_espcn(cfg: configs.SuperResConfig = configs.SUPERRES, seed: int = 0, device=None):
+    """Seeded ESPCN params (the JAX package's draw, ``superres.init_params``)."""
+    return superres.init_params(cfg, np.random.RandomState(seed), device=device)
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | 0x80 if v else b)
+        if not v:
+            return bytes(out)
+
+
+def _len_field(num: int, payload: bytes) -> bytes:
+    return _varint((num << 3) | 2) + _varint(len(payload)) + payload
+
+
+def _tensor_proto(name: str, arr: np.ndarray, float_data: bool) -> bytes:
+    out = bytearray()
+    for d in arr.shape:
+        out += _varint(1 << 3) + _varint(d)  # dims, unpacked
+    out += _varint(2 << 3) + _varint(1)  # data_type FLOAT
+    flat = np.ascontiguousarray(arr, np.float32)
+    if float_data:
+        out += _len_field(4, struct.pack(f"<{flat.size}f", *flat.ravel()))
+    else:
+        out += _len_field(9, flat.tobytes())  # raw_data
+    out += _len_field(8, name.encode())
+    return bytes(out)
+
+
+def _node_proto(op_type: str, inputs) -> bytes:
+    return b"".join(_len_field(1, i.encode()) for i in inputs) + _len_field(4, op_type.encode())
+
+
+def write_espcn_onnx(path: str, params, *, numeric_names: bool = False,
+                     float_data: bool = False) -> str:
+    """Save ESPCN params (``superres`` layout, OIHW) as an ONNX ModelProto:
+    Conv, Relu x 3, Conv, DepthToSpace, the weights as OIHW initializers
+    (``raw_data``, or ``float_data`` where asked; named ``conv{i}.weight``,
+    or numbered as older torch exporters name them)."""
+    graph, prev = bytearray(), "input"
+    for i in (1, 2, 3, 4):
+        wname = str(2 * i) if numeric_names else f"conv{i}.weight"
+        bname = str(2 * i + 1) if numeric_names else f"conv{i}.bias"
+        graph += _len_field(1, _node_proto("Conv", [prev, wname, bname]))
+        prev = f"act{i}"
+        if i < 4:
+            graph += _len_field(1, _node_proto("Relu", [prev]))
+        for name, leaf in ((wname, params[f"conv{i}"]["w"]), (bname, params[f"conv{i}"]["b"])):
+            graph += _len_field(5, _tensor_proto(name, leaf.detach().cpu().numpy(), float_data))
+    graph += _len_field(1, _node_proto("DepthToSpace", [prev]))
+    with open(path, "wb") as f:
+        f.write(_len_field(7, bytes(graph)))
+    return str(path)
+
+
+# ---------------------------------------------------------------------------
+# modes.yaml
+# ---------------------------------------------------------------------------
+
+
+def _yaml_key(k) -> str:
+    k = str(k)
+    return k if re.fullmatch(r"[A-Za-z_][A-Za-z0-9_-]*", k) else json.dumps(k)
+
+
+def _yaml_lines(value, indent: int):
+    pad = " " * indent
+    if isinstance(value, dict) and value:
+        for k, v in value.items():
+            if isinstance(v, (dict, list)) and v:
+                yield f"{pad}{_yaml_key(k)}:"
+                yield from _yaml_lines(v, indent + 2)
+            else:
+                yield f"{pad}{_yaml_key(k)}: {_yaml_scalar(v)}"
+    else:
+        for v in value:
+            if isinstance(v, (dict, list)) and v:
+                inner = list(_yaml_lines(v, indent + 2))
+                yield f"{pad}- {inner[0].lstrip()}"
+                yield from inner[1:]
+            else:
+                yield f"{pad}- {_yaml_scalar(v)}"
+
+
+def _yaml_scalar(v) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, list):
+        return "[]"
+    if isinstance(v, bool):
+        raise ValueError("modes.yaml takes no booleans")  # yaml_lite reads none
+    return "null" if v is None else json.dumps(v)
+
+
+def write_modes_yaml(path: str, modes: Dict[str, dict], *, default_mode: Optional[str] = None,
+                     model_root: Optional[str] = None, lora_root: Optional[str] = None) -> str:
+    """Write a ``modes.yaml`` (block mappings and sequences, JSON-quoted
+    scalars: what both PyYAML and ``utils/yaml_lite.py`` read alike)."""
+    top = {k: v for k, v in (("model_root", model_root), ("lora_root", lora_root),
+                              ("default_mode", default_mode)) if v is not None}
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(_yaml_lines({**top, "modes": modes}, 0)) + "\n")
+    return str(path)

@@ -366,6 +366,116 @@ def test_progress_segments_and_controlnet_under_captured_graphs(cuda):
     assert np.array_equal(second.images, eager.images)
 
 
+def test_pipelined_generate_and_styles_on_the_card(cuda, tmp_path):
+    """``generate(pipelined=True)`` gives ``generate``'s bytes with several
+    requests of one bucket in flight (pinned staging, per-request pinned
+    outputs); pipelined requests of two styles, dispatched back to back,
+    each equal their serial runs (restores and merges queued behind the
+    replays)."""
+    from dreamlab_tpu_torch import lora, testing
+    from dreamlab_tpu_torch.engine.base import GenSpec
+    from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
+    from dreamlab_tpu_torch.pipeline import LCMPipeline
+    from dreamlab_tpu_torch.utils.safetensors import save_file
+
+    pipe = LCMPipeline(testing.random_bundle(tiny=True, seed=3, device="cuda"))
+    kw = dict(height=64, width=64, num_inference_steps=2)
+    serial = [pipe.generate("a cat", seed=s, **kw) for s in (1, 2, 3)]
+    flight = [pipe.generate("a cat", seed=s, pipelined=True, **kw) for s in (1, 2, 3)]
+    for want, res in zip(serial, flight):
+        res.wait()
+        assert np.array_equal(res.images, want.images)
+        assert np.array_equal(res.latents, want.latents)
+    styles = {}
+    for name, seed in (("A", 5), ("B", 6)):
+        path = str(tmp_path / f"{name}.safetensors")
+        save_file(testing.random_lora(pipe.unet_params, rank=4, seed=seed), path)
+        styles[name] = lora.StyleDef(name=name, path=path, strengths=(4.0,))
+    worker = CudaPipelineWorker(pipe, styles=styles)
+    specs = [GenSpec("a cat", size="64x64", num_inference_steps=2, seed=7, style=st,
+                     style_level=1) for st in ("A", "B", None)]
+    want = [worker.run_job(s) for s in specs]
+    assert len({png for png, _ in want}) == 3
+    for _ in range(3):
+        finals = [worker.run_job_pipelined(s) for s in specs]
+        assert [f() for f in finals] == want
+
+
+def test_capture_on_one_thread_while_another_replays(cuda):
+    """A bucket captured on one thread (device lock exclusive, the
+    "thread_local" capture mode) while another thread replays another
+    pipeline's bucket and runs eager convs on a stream of its own: every
+    result equals its serial run."""
+    import threading
+
+    from dreamlab_tpu_torch import testing
+    from dreamlab_tpu_torch.models import superres
+    from dreamlab_tpu_torch.models.configs import SuperResConfig
+    from dreamlab_tpu_torch.pipeline import LCMPipeline, device_lock
+
+    a = LCMPipeline(testing.random_bundle(tiny=True, seed=3, device="cuda"))
+    b = LCMPipeline(testing.random_bundle(tiny=True, seed=4, device="cuda"))
+    kw = dict(num_inference_steps=2)
+    want_a = [a.generate("a cat", height=64, width=64, seed=s, **kw).images for s in range(6)]
+    cfg = SuperResConfig(tile=32)
+    params = testing.random_espcn(cfg, seed=1, device="cuda")
+    y = torch.rand(96, 80, device="cuda")
+    want_sr = superres.upscale_luma(params, cfg, y).cpu()
+    errors, got_a, got_sr = [], [], []
+    go = threading.Event()
+
+    def replays():
+        go.wait(10)
+        stream = torch.cuda.Stream()
+        try:
+            for s in range(6):
+                got_a.append(a.generate("a cat", height=64, width=64, seed=s, **kw).images)
+                with device_lock("cuda").shared(), torch.cuda.stream(stream):
+                    out = superres.upscale_luma(params, cfg, y)
+                stream.synchronize()
+                got_sr.append(out.cpu())
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=replays)
+    t.start()
+    go.set()
+    captured = [b.warmup(h, w, steps=2) for h, w in ((64, 64), (32, 64), (64, 32))]
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    assert all(np.array_equal(g, w) for g, w in zip(got_a, want_a)) and len(got_a) == 6
+    assert all(torch.equal(g, want_sr) for g in got_sr)
+    assert len(b._compiled) == 3 and all(c["capture_s"] > 0 for c in captured)
+    for (h, w) in ((64, 64), (32, 64), (64, 32)):
+        res = b.generate("a dog", height=h, width=w, seed=9, **kw)
+        eager = b._generate_eager("a dog", height=h, width=w, seed=9, **kw)
+        assert np.abs(res.images.astype(int) - eager.images.astype(int)).max() <= 1
+
+
+def test_superres_on_the_card_matches_the_cpu(cuda):
+    """The ESPCN forward on cuDNN (fp32, TF32 off) against the CPU's, and the
+    colour ops and the bicubic resize byte-equal between card and CPU."""
+    from dreamlab_tpu_torch import testing
+    from dreamlab_tpu_torch.models import superres
+    from dreamlab_tpu_torch.models.configs import SUPERRES
+    from dreamlab_tpu_torch.pipeline import deterministic_backends
+    from dreamlab_tpu_torch.utils import image_ops
+
+    deterministic_backends()
+    params = testing.random_espcn(SUPERRES, seed=2)
+    y = torch.rand(300, 250)
+    want = superres.upscale_luma(params, SUPERRES, y)
+    got = superres.upscale_luma({k: {n: v.cuda() for n, v in d.items()}
+                                 for k, d in params.items()}, SUPERRES, y.cuda()).cpu()
+    assert (got - want).abs().max().item() < 1e-4
+    assert (torch.round(got * 255) - torch.round(want * 255)).abs().max().item() <= 1
+    rgb = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (123, 77, 3)).astype(np.uint8))
+    for fn in (image_ops.rgb_to_ycbcr, image_ops.ycbcr_to_rgb,
+               lambda x: image_ops.resize_bicubic(x, (231, 369)),
+               lambda x: image_ops.resize_bicubic(x, (40, 50))):
+        assert torch.equal(fn(rgb.cuda()).cpu(), fn(rgb))
+
+
 def test_group_norm_at_2e31_values(cuda):
     """bf16 [8, 1024, 1024, 256]: 2^31 values, the VAE decode of a run_jobs of
     8 SDXL requests. Each batch row against the plain fp32 version of that

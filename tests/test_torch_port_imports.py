@@ -1,6 +1,6 @@
 """Import hygiene: the port imports nothing of JAX and nothing of ``dreamlab_tpu``,
-reads safetensors files without the ``safetensors`` package, and YAML
-without PyYAML."""
+reads safetensors files without the ``safetensors`` package, YAML without
+PyYAML, and imports PIL only inside a call that needs it."""
 
 import os
 import pkgutil
@@ -20,7 +20,9 @@ def test_importing_every_module_loads_no_jax():
     assert "dreamlab_tpu_torch.scripts.ab_attention_layout" in mods
     for new in ("loader", "engine.worker_factory", "utils.safetensors", "lora",
                 "textual_inversion", "engine.styles", "engine.model_registry",
-                "utils.yaml_lite", "models.controlnet"):
+                "utils.yaml_lite", "models.controlnet", "engine.worker_pool",
+                "engine.mode_config", "engine.file_watcher", "models.superres",
+                "utils.onnx_weights", "utils.image_ops", "serving.superres_service"):
         assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -33,7 +35,9 @@ def test_importing_every_module_loads_no_jax():
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'dreamlab_tpu' or m.startswith('dreamlab_tpu.')"
         " or m == 'safetensors' or m.startswith('safetensors.')"
-        " or m == 'yaml' or m.startswith('yaml.'))\n"
+        " or m == 'yaml' or m.startswith('yaml.')"
+        # PIL is imported only by a super-resolution job that needs its codecs
+        " or m == 'PIL' or m.startswith('PIL.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -43,7 +47,8 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_name_no_jax_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml)(\.|\s|$)",
+    pattern = re.compile(r"^(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml|PIL)(\.|\s|$)"
+                         r"|^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml)(\.|\s|$)",
                          re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "dreamlab_tpu_torch")):

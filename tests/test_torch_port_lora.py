@@ -385,6 +385,8 @@ YAML_DOCS = {
                 "f: [1, -2.5, .5, 1_000, 1.5e3, 08, 'it''s', null, +3., -.inf]\n"
                 "nested:\n    deep:\n        k: v-w\n"),
     "empty": "\n# nothing\n",
+    "block_list": "a:\n  - x\n",
+    "flow_map": "a: {b: 1}\n",
 }
 
 
@@ -397,9 +399,9 @@ def test_yaml_lite_reads_as_safe_load(name):
     assert yaml_lite.loads(YAML_DOCS[name]) == yaml.safe_load(YAML_DOCS[name])
 
 
-@pytest.mark.parametrize("doc", ["a: true", "a: off", "a:\n  - x", "a: &x 1", "a: *x",
+@pytest.mark.parametrize("doc", ["a: true", "a: off", "a:\n  - - x", "a: &x 1", "a: *x",
                                  "a: !!str 1", "a: 2020-01-01", "a: 0x1F", "a: 012",
-                                 "a: 1:30", "---\na: 1", "a: [1, [2]]", "a: {b: 1}",
+                                 "a: 1:30", "---\na: 1", "a: [1, [2]]", "a: {b: {c: 1}}",
                                  "a: b: c", "a: |\n  text", "a: 'open", "a:\n\tb: 1",
                                  "a: [1,\n  2]", "just a scalar"])
 def test_yaml_lite_raises_outside_its_subset(doc):
