@@ -59,6 +59,23 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    tiles): the card's luma within 1 level of the CPU's fp32 forward, the
    colour path byte-equal to the CPU's, ms per pass, host PNG decode and
    encode ms, peak memory; the bicubic mode equal to the CPU's;
+6c. server (counts reset before it, read after it: every kernel launched):
+   ``serving.app.create_app(device="cuda")`` started in the process on a
+   127.0.0.1 port over three modes of that directory (``a`` plain, ``b``
+   with the mode LoRA, ``c`` with a full-width ControlNet), the pool
+   phase's ESPCN, ``DREAMLAB_MODE_CACHE=3``, solo dispatch; over real
+   sockets at 512², 4 steps: ``/generate`` = ``run_job``, the storage round
+   trip, ``/generate/stream`` (4 progress events in order, the result =
+   ``/generate``'s), ``/generate`` with ``superres`` = the SR service on that
+   PNG, ``/sdapi/v1/txt2img`` at batch 2 and ``/v1/images/generations`` at
+   n 2 = their solo ``/generate``, ``/v1/img2img`` and ``/v1/inpaint`` =
+   ``run_img2img``, a disconnected client's queued job never runs;
+   p50 over 20 serial ``/generate`` beside 20 ``run_job``, 16 concurrent
+   HTTP clients beside the pool's own img/s on the same specs (in turns),
+   the busy share over them, a profiled request (40 flash, 209
+   GroupNorm+SiLU kernels); ``/api/modes/switch`` to ``c`` with
+   ``wait_seconds`` then ``X-Mode``, ``/v1/controlnet`` = the worker's
+   ``run_job`` with the hint, a tenant request for ``b``; stage times;
 7. SD1.5 extras: a new full-width worker with two styles (rank-8 LoRAs over
    every projection the key map reaches, kohya and diffusers dialect).
    Styles path (counts reset before it): unstyled, A at level 3 (its first
@@ -126,7 +143,8 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    kernel's bound, and prints one ``{"probes": {...}}`` line;
 10. prints the run's seconds (``{"total_s": ...}``), the ``{"kernels": [...]}``
    line (each kernel on the SD1.5 main path, K1 and K2+K3 on the pool
-   path (``_pool``: its launches, the SD1.5 census's times), then on the
+   path (``_pool``: its launches, the SD1.5 census's times) and on the
+   server path (``_server``, likewise), then on the
    SDXL path with a ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
    ``_encoder_sdxl``), K1 at 1344x768, K1 and K2+K3 on the ControlNet path
    (``_controlnet``) and at the refiner segment's shapes (``_refiner``),
@@ -136,13 +154,16 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
 
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
+import http.client
 import json
 import math
 import os
 import platform
 import re
+import socket
 import statistics
 import struct
 import subprocess
@@ -164,6 +185,7 @@ from dreamlab_tpu_torch.engine.mode_config import ModeConfigManager
 from dreamlab_tpu_torch.engine.model_registry import get_model_registry, reset_model_registry
 from dreamlab_tpu_torch.engine.worker_factory import create_cuda_worker
 from dreamlab_tpu_torch.engine.worker_pool import CustomJob, GenerationJob, WorkerPool
+from dreamlab_tpu_torch.invokers.comfy_client import multipart_body
 from dreamlab_tpu_torch.models import layers, superres, vae
 from dreamlab_tpu_torch.models.configs import SUPERRES
 from dreamlab_tpu_torch.ops import _build, attention
@@ -172,6 +194,8 @@ from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
 from dreamlab_tpu_torch.pipeline import LCMPipeline, _flat
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
+from dreamlab_tpu_torch.serving import app as server_app
+from dreamlab_tpu_torch.serving.http import ServerThread
 from dreamlab_tpu_torch.serving.superres_service import (SuperResService, SuperResWorker,
                                                          decode_rgb, load_sr_params)
 from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
@@ -1231,6 +1255,250 @@ def pool_sr_phase(root: str, per_request) -> tuple:
     sr_out = sr_path(onnx, png)
     sr_out["path_s"] = time.perf_counter() - t0
     return {"pool": pool_out, "superres": sr_out}, launched
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the HTTP server over the pool, on real sockets
+# ---------------------------------------------------------------------------
+
+SERVER_SERIAL = 20  # serial /generate requests timed (and as many run_job beside them)
+SERVER_CLIENTS = 16  # concurrent HTTP clients, one request each
+
+
+def http_call(port: int, method: str, path: str, body=None, headers=None, conn=None) -> tuple:
+    """(status, lower-case headers, body) of one request (a fresh connection
+    unless ``conn`` is given)."""
+    c = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=POOL_TIMEOUT_S)
+    try:
+        if isinstance(body, dict):
+            body, headers = json.dumps(body).encode(), {"Content-Type": "application/json"}
+        c.request(method, path, body=body, headers=headers or {})
+        r = c.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+    finally:
+        if conn is None:
+            c.close()
+
+
+def png_seed(png: bytes) -> int:
+    """The seed in a port PNG's ``parameters`` text."""
+    text = png[png.index(b"tEXtparameters\x00") + 15:]
+    return int(re.search(rb"Seed: (\d+)", text).group(1))
+
+
+def server_path(root: str, ckpt: str, mode_lora: str, onnx: str, per_request) -> dict:
+    """``create_app(device="cuda")`` served on 127.0.0.1 over three modes of
+    the loader phase's SD1.5 directory (``a`` plain, ``b`` with the mode
+    LoRA, ``c`` with a full-width ControlNet) and the pool phase's ESPCN;
+    every route's bytes held against the in-process call they stand for;
+    a disconnected client's job never runs; HTTP p50 beside run_job's, 16
+    concurrent clients beside the pool's own img/s, the busy share."""
+    t_write = time.perf_counter()
+    net = cast_tree(random_controlnet(SD15_CONTROLNET, seed=13,
+                                      cond_channels=CONTROLNET_COND_CHANNELS, device="cuda"),
+                    torch.float16)
+    cn_dir = write_controlnet_dir(net, SD15_CONTROLNET, os.path.join(root, "cn_server"))
+    del net
+    defaults = {"size": f"{SIZE}x{SIZE}", "steps": STEPS}
+    modes = testing.write_modes_yaml(os.path.join(root, "modes_server.yaml"), {
+        "a": {"model": ckpt, "defaults": defaults},
+        "b": {"model": ckpt, "loras": [{"file": mode_lora, "strength": 0.8}],
+              "defaults": defaults},
+        "c": {"model": ckpt, "controlnet": {"file": cn_dir, "scale": 1.0},
+              "defaults": defaults}}, default_mode="a")
+    os.environ["DREAMLAB_MODE_CACHE"] = "3"
+    os.environ["DREAMLAB_MAX_BATCH"] = "1"  # solo requests, pipelined, as in the pool phase
+    reset_model_registry()
+    cfg = server_app.ServerConfig(modes_config=modes, default_size=f"{SIZE}x{SIZE}",
+                                  default_steps=STEPS, sr_model_path=onnx)
+    t_start = time.perf_counter()
+    marks = {"controlnet_written": t_start - t_write}
+    app = server_app.create_app(cfg, device="cuda")
+    srv = ServerThread(app).start()
+    out = {"startup_s": time.perf_counter() - t_start, "marks_s": marks}
+    mark = lambda name: marks.__setitem__(name, time.perf_counter() - t_start)
+    state = app[server_app.STATE_KEY]
+    pool, port = state.pool, srv.port
+    prompt = "a harbour at night"
+    gen = lambda seed, **kw: {"prompt": prompt, "seed": seed, **kw}
+    spec = lambda seed, **kw: GenSpec(prompt, size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
+                                      seed=seed, **kw)
+    try:
+        wa = pool.worker
+        checks = {}
+        # /generate = run_job; the storage round trip
+        status, hdr, png = http_call(port, "POST", "/generate", gen(900))
+        check_png(png)
+        checks["generate_eq_run_job"] = status == 200 and png == wa.run_job(spec(900))[0]
+        status, _, stored = http_call(port, "GET", f"/storage/{hdr['x-lcm-image-key']}")
+        checks["storage_round_trip"] = status == 200 and stored == png
+        checks["headers"] = (hdr["x-seed"], hdr["x-mode"], hdr["x-superres"]) == ("900", "a", "0")
+        # /generate/stream: 4 progress events in order, the result = /generate's
+        status, hdr, body = http_call(port, "POST", "/generate/stream", gen(900))
+        events = [(b.split("\n")[0][7:], json.loads(b.split("\n")[1][6:]))
+                  for b in body.decode().strip().split("\n\n")]
+        steps = [d["step"] for e, d in events if e == "progress"]
+        result = [d for e, d in events if e == "result"]
+        checks["stream_progress_in_order"] = steps == list(range(STEPS))
+        checks["stream_result_eq_generate"] = (
+            len(result) == 1 and base64.b64decode(result[0]["image_b64"]) == png)
+        # /generate with superres = the SR service on that PNG
+        status, hdr, up = http_call(port, "POST", "/generate",
+                                    gen(900, superres=True, superres_magnitude=1))
+        want, _ = state.sr.submit(png, magnitude=1).result(timeout=POOL_TIMEOUT_S)
+        checks["superres_eq_service"] = status == 200 and up == want and hdr["x-sr-passes"] == "1"
+        # compat: batch 2 and n 2 = their solo /generate
+        solo = lambda seed: http_call(port, "POST", "/generate", gen(seed))[2]
+        status, _, body = http_call(port, "POST", "/sdapi/v1/txt2img", {
+            "prompt": prompt, "width": SIZE, "height": SIZE, "steps": STEPS, "seed": 910,
+            "batch_size": 2})
+        images = [base64.b64decode(i) for i in json.loads(body)["images"]]
+        checks["txt2img_batch2_eq_solo"] = status == 200 and images == [solo(910), solo(911)]
+        status, _, body = http_call(port, "POST", "/v1/images/generations",
+                                    {"prompt": prompt, "size": f"{SIZE}x{SIZE}", "n": 2})
+        images = [base64.b64decode(d["b64_json"]) for d in json.loads(body)["data"]]
+        checks["openai_n2_eq_solo"] = status == 200 and len(images) == 2 and all(
+            img == solo(png_seed(img)) for img in images)
+        # img2img and inpaint = run_img2img
+        image, mask = test_image(SIZE, SIZE, 90), half_mask(SIZE, SIZE)
+        for route, files, strength in (
+                ("/v1/img2img", {"file": ("in.png", encode_png(image), "image/png")}, 0.5),
+                ("/v1/inpaint", {"file": ("in.png", encode_png(image), "image/png"),
+                                 "mask": ("mask.png", encode_png(mask), "image/png")}, 1.0)):
+            form, ctype = multipart_body({"prompt": prompt, "strength": str(strength),
+                                          "steps": str(STEPS), "seed": "920"}, files)
+            status, hdr, body = http_call(port, "POST", route, form, {"Content-Type": ctype})
+            want = wa.run_img2img(spec(920), image, strength=strength,
+                                  mask=mask if "mask" in files else None)[0]
+            checks[f"{route[4:]}_eq_run_img2img"] = status == 200 and body == want
+        mark("routes")
+        # a client that goes away while its job is queued: the job never runs
+        ran = []
+        dispatch = wa.run_job_pipelined
+        wa.run_job_pipelined = lambda s: ran.append(s.seed) or dispatch(s)
+        gate = pool_stall(pool)
+        body = json.dumps(gen(4242)).encode()
+        sock = socket.create_connection(("127.0.0.1", port))
+        sock.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+        wait_for(lambda: pool.queue.qsize() == 1, "the disconnecting client's job queued")
+        (job,) = list(pool.queue.queue)
+        sock.close()
+        wait_for(job.future.cancelled, "the disconnected client's job cancelled")
+        gate.set()
+        http_call(port, "POST", "/generate", gen(901))
+        del wa.run_job_pipelined
+        checks["disconnected_job_never_ran"] = job.future.cancelled() and ran == [901]
+
+        mark("disconnect")
+        # timings: serial /generate against run_job on the same specs
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=POOL_TIMEOUT_S)
+        seeds = list(range(1000, 1000 + SERVER_SERIAL))
+        lat = {"run_job": [], "http": []}
+        for order in ("http", "run_job"):
+            for seed in seeds:
+                t0 = time.perf_counter()
+                if order == "http":
+                    status, _, body = http_call(port, "POST", "/generate", gen(seed), conn=conn)
+                    expect(status == 200, f"/generate answered {status}")
+                else:
+                    wa.run_job(spec(seed))
+                lat[order].append(1e3 * (time.perf_counter() - t0))
+        conn.close()
+        out["serial"] = {"p50_ms_http": statistics.median(lat["http"]),
+                         "p50_ms_run_job": statistics.median(lat["run_job"]),
+                         "min_ms_http": min(lat["http"]), "max_ms_http": max(lat["http"]),
+                         "samples_each": len(lat["http"])}
+        mark("serial")
+        # 16 concurrent clients against the pool's own img/s on the same specs
+        seeds = list(range(1100, 1100 + SERVER_CLIENTS))
+
+        def clients():
+            got = [None] * len(seeds)
+
+            def one(i):
+                got[i] = http_call(port, "POST", "/generate", gen(seeds[i]))
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(seeds))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return time.perf_counter() - t0, got
+
+        rounds = []
+        for order in ("pool", "http", "http", "pool"):
+            if order == "pool":
+                secs, pngs, _ = pool_run(pool, [spec(s) for s in seeds])
+                want = [p for p, _ in pngs]
+            else:
+                secs, got = clients()
+                check_same([b for _, _, b in got], want, "16 concurrent HTTP clients")
+            rounds.append({order: len(seeds) / secs})
+        prof = profile(clients)
+        out["concurrent"] = {"img_per_s": rounds, "profile_16": {
+            k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernel_launches")}}
+        mark("concurrent")
+        census_req = profile(lambda: http_call(port, "POST", "/generate", gen(1200)))
+        ran_k = {k: census_req["port_kernels"].get(k, 0) for k in ("flash_mma_kernel",
+                                                                   "gn_cluster_kernel")}
+        checks["http_request_ran_the_census"] = ran_k == {
+            "flash_mma_kernel": per_request["flash"], "gn_cluster_kernel": per_request["gn"]}
+        out["census_profile"] = {"port_kernels": census_req["port_kernels"],
+                                 "device_busy_ms": census_req["device_busy_ms"],
+                                 "wall_ms": census_req["wall_ms"]}
+
+        mark("census")
+        # /api/modes/switch with wait_seconds, then X-Mode; /v1/controlnet = generate
+        t0 = time.perf_counter()
+        status, _, body = http_call(port, "POST", "/api/modes/switch",
+                                    {"mode": "c", "wait_seconds": 120})
+        out["switch_to_c_ms"] = 1e3 * (time.perf_counter() - t0)
+        status, hdr, _ = http_call(port, "POST", "/generate", gen(930))
+        checks["switch_then_x_mode"] = json.loads(body)["status"] == "switched" \
+            and hdr["x-mode"] == "c"
+        wc = pool.worker
+        hint = test_image(SIZE, SIZE, 91)
+        form, ctype = multipart_body({"prompt": prompt, "steps": str(STEPS), "seed": "931",
+                                      "scale": "0.7"},
+                                     {"file": ("hint.png", encode_png(hint), "image/png")})
+        status, hdr, body = http_call(port, "POST", "/v1/controlnet", form,
+                                      {"Content-Type": ctype})
+        want = wc.run_job(spec(931, control_image=hint, controlnet_scale=0.7))[0]
+        checks["controlnet_eq_generate"] = status == 200 and body == want and \
+            (hdr["x-controlnet"], hdr["x-controlnet-scale"]) == ("1", "0.7")
+        mark("controlnet")
+        status, hdr, _ = http_call(port, "POST", "/generate", gen(932, mode="b"))
+        checks["tenant_b_x_mode"] = status == 200 and hdr["x-mode"] == "b"
+        status, _, body = http_call(port, "GET", "/api/models/status")
+        out["status"] = json.loads(body)["queue"]
+        out["memory"] = json.loads(body)["memory"]
+        out["buckets"] = sum(len(w.pipeline._compiled) for w in
+                             [pool.worker] + [e[1] for e in pool._mode_cache.values()])
+        mark("tenant")
+        for name, ok in checks.items():
+            expect(bool(ok), f"server: {name}")
+        out["checks"] = checks
+    finally:
+        srv.stop()  # the cleanup hooks shut the pool and the SR service down
+    out["shut_down"] = pool.get_status()["shutdown"]
+    return out
+
+
+def server_phase(root: str, onnx: str, per_request) -> tuple:
+    """Phase 6c on the loader phase's directory and mode LoRA and the pool
+    phase's ESPCN, its launch counts reset before it and read after it.
+    Returns the phase's line and its launches."""
+    t0 = time.perf_counter()
+    reset_counts()
+    out = server_path(root, os.path.join(root, "sd15"),
+                      os.path.join(root, "mode_lora.safetensors"), onnx, per_request)
+    launched = counts()
+    expect(all(launched[k] > 0 for k in ("flash", "gn")),
+           f"the server path launched {launched}")
+    out.update(launches=launched, path_s=time.perf_counter() - t0)
+    return {"server": out}, launched
 
 
 # ---------------------------------------------------------------------------
@@ -2427,6 +2695,11 @@ def main() -> int:
         pool_line, pool_launches = pool_sr_phase(root, per_request)
         end_phase("pool and super-resolution")
         log({"pool_sr": {**pool_line, "phase_s": time.perf_counter() - t0, "card": smi}})
+        t0 = time.perf_counter()
+        server_line, server_launches = server_phase(
+            root, os.path.join(root, "super-resolution-10.onnx"), per_request)
+        end_phase("server")
+        log({**server_line, "phase_s": time.perf_counter() - t0, "card": smi})
 
     enc_rows, enc_launches, enc_errs, extras_line = sd15_extras_phase(per_request, seen)
     log(extras_line)
@@ -2451,6 +2724,7 @@ def main() -> int:
 
     kernels = (kernel_entries(rows, result["launches"], errs)
                + kernel_entries(rows, pool_launches, errs, "_pool", ("flash", "gn"))
+               + kernel_entries(rows, server_launches, errs, "_server", ("flash", "gn"))
                + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn"))
                + kernel_entries(enc_rows, enc_launches, enc_errs, "_encoder", ("gn",))
                + kernel_entries(*xl_i2i, "_encoder_sdxl", ("gn",))

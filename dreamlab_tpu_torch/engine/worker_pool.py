@@ -160,6 +160,9 @@ class WorkerPool:
         # before/after memory delta (they would inflate that worker's
         # registered footprint), and a worker is never torn down mid-capture
         self._hbm_window_lock = threading.Lock()
+        # mode signature -> the device bytes its last build measured; a cold
+        # load is admitted on the larger of this and the registry's estimate
+        self._measured_hbm: Dict[tuple, int] = {}
 
         if load_default:
             self._load_mode(self.mode_config.default_mode)
@@ -196,7 +199,7 @@ class WorkerPool:
             return
 
         self._stash_current_worker()
-        self._evict_until_fits(mode.model)
+        self._evict_until_fits(mode)
         t0 = time.time()
         worker = self._build_worker(mode_name, mode)
         with self._state_lock:
@@ -212,6 +215,9 @@ class WorkerPool:
 
         warm = os.environ.get("WARMUP", "1") not in ("0", "false", "False")
         with self._hbm_window_lock:
+            # the baseline holds no cached block a capture's empty_cache
+            # would give back inside the window (the delta would miss it)
+            self._empty_cache()
             used_before = self.registry.get_used_hbm()
 
             # per-mode extras (LoRAs with strengths, textual inversions, the
@@ -254,7 +260,9 @@ class WorkerPool:
                     self._release(worker)
                     raise
             hbm = max(self.registry.get_used_hbm() - used_before, 0)
-            if hbm == 0:
+            if hbm:
+                self._measured_hbm[self._mode_signature(mode)] = hbm
+            else:
                 hbm = self.registry.estimate_model_hbm(mode.model)
             self.registry.register_model(
                 name=mode_name,
@@ -328,12 +336,21 @@ class WorkerPool:
         self._dispose_worker(mode_name, entry[1])
         return None
 
-    def _evict_until_fits(self, model_path: str):
+    def _admission_bytes(self, mode) -> int:
+        """What a cold load of ``mode`` is admitted on: the larger of the
+        registry's estimate (checkpoint bytes only) and the delta the last
+        build of the same mode signature measured (weights and the default
+        bucket's graph pool). A mode never built is admitted on the estimate;
+        the JAX pool admits on the estimate alone."""
+        return max(self.registry.estimate_model_hbm(mode.model),
+                   self._measured_hbm.get(self._mode_signature(mode), 0))
+
+    def _evict_until_fits(self, mode):
         """Make room BEFORE a load allocates: evict LRU warm workers until
-        the estimate fits (can_fit degrades to True without device stats,
-        so a stats-less backend never churns the cache)."""
-        estimate = self.registry.estimate_model_hbm(model_path)
-        while not self.registry.can_fit(estimate):
+        the admission bytes fit (can_fit degrades to True without device
+        stats, so a stats-less backend never churns the cache)."""
+        need = self._admission_bytes(mode)
+        while not self.registry.can_fit(need):
             victim = self._pop_lru_cached()
             if victim is None:
                 break
@@ -390,18 +407,23 @@ class WorkerPool:
 
     def _release(self, worker):
         """Close a worker and give its memory back to the card: its graphs
-        and weights dropped, collected, and the CUDA cache emptied with the
-        device lock held exclusively (no capture of another thread runs
-        meanwhile), so ``mem_get_info`` shows the bytes free."""
+        and weights dropped, collected, and the CUDA cache emptied, so
+        ``mem_get_info`` shows the bytes free."""
+        close = getattr(worker, "close", None)
+        if close:
+            close()
+        self._empty_cache()
+
+    def _empty_cache(self):
+        """Collect garbage and return the allocator's cached blocks to the
+        card, with the device lock held exclusively (no capture of another
+        thread runs meanwhile): the device's used bytes are then live ones."""
         import gc
 
         import torch
 
         from ..pipeline import device_lock
 
-        close = getattr(worker, "close", None)
-        if close:
-            close()
         device = self.registry.device
         with device_lock(device).exclusive():
             gc.collect()
@@ -478,7 +500,7 @@ class WorkerPool:
             return cached
         if before_build is not None:
             before_build()
-        self._evict_until_fits(mode.model)
+        self._evict_until_fits(mode)
         t0 = time.time()
         worker = self._build_worker(mode_name, mode)
         with self._state_lock:
@@ -800,8 +822,7 @@ class WorkerPool:
             except KeyError:
                 logger.warning("preload: unknown mode %s", name)
                 return None
-            estimate = self.registry.estimate_model_hbm(mode.model)
-            if not self.registry.can_fit(estimate):
+            if not self.registry.can_fit(self._admission_bytes(mode)):
                 logger.warning("preload: no room on the device for %s", name)
                 return None
             worker = self._build_worker(name, mode)

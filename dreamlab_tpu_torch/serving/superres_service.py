@@ -87,6 +87,24 @@ def decode_rgb(data: bytes) -> np.ndarray:
     return np.asarray(img.convert("RGB"))
 
 
+def decode_l(data: bytes) -> np.ndarray:
+    """Image bytes -> uint8 [H, W] luma, as PIL's ``Image.open(...).convert("L")``
+    gives it: PNGs the port's decoder reads without PIL (gray as it is, alpha
+    dropped, colour through PIL's RGB -> L on host tensors), anything else
+    through PIL."""
+    if data[:8] == _PNG_SIGNATURE:
+        try:
+            px = decode_png(data)
+        except UnsupportedPNG:
+            pass
+        else:
+            if px.shape[2] in (1, 2):
+                return np.ascontiguousarray(px[..., 0])
+            return image_ops.rgb_to_l(torch.from_numpy(np.ascontiguousarray(px[..., :3]))).numpy()
+    img = _pil_image().open(io.BytesIO(data))
+    return np.asarray(img.convert("L"))
+
+
 def encode_image(rgb: np.ndarray, out_format: str, quality: int) -> bytes:
     """uint8 [H, W, 3] -> PNG (``encode_png``) or JPEG (PIL) bytes."""
     if out_format.lower() in ("jpeg", "jpg"):

@@ -9,11 +9,14 @@ PIL's to the bit:
 - RGB <-> YCbCr: JFIF coefficients, as PIL's ``ConvertYCbCr.c`` tabulates
   them (each table entry ``int(c * 64 * i + 0.5)``, truncated towards zero;
   sums shifted right by 6 bits);
-- bicubic resize (``Image.resize(..., BICUBIC)``): the Keys kernel with
-  a = -0.5, support 2 scaled by the reduction factor, weights normalised per
-  output pixel and rounded to 22 fractional bits, two separable passes
-  (horizontal, then vertical), each rounded and clipped to uint8 as PIL's
-  8-bit resampler does.
+- bicubic and Lanczos resizes (``Image.resize(..., BICUBIC)`` and
+  ``LANCZOS``): the Keys kernel with a = -0.5 (support 2) or the 3-lobed
+  Lanczos window (support 3), the support scaled by the reduction factor,
+  weights normalised per output pixel and rounded to 22 fractional bits, two
+  separable passes (horizontal, then vertical), each rounded and clipped to
+  uint8 as PIL's 8-bit resampler does;
+- RGB -> L (``Image.convert("L")``): ITU-R 601-2 luma in 16-bit fixed point,
+  ``(R * 19595 + G * 38470 + B * 7471 + 0x8000) >> 16``.
 
 Images are uint8 tensors [H, W, C]. The tables and the resize weights are
 computed on the host and copied to the device asynchronously from pinned
@@ -81,20 +84,36 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def resize_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _sinc(x: np.ndarray) -> np.ndarray:
+    px = np.pi * np.where(x == 0.0, 1.0, x)
+    return np.where(x == 0.0, 1.0, np.sin(px) / px)
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """The sinc windowed by a 3-lobed sinc (PIL's ``lanczos_filter``)."""
+    return np.where((-3.0 <= x) & (x < 3.0), _sinc(x) * _sinc(x / 3.0), 0.0)
+
+
+# filter name -> (kernel, support), as PIL's Resample.c declares them
+_FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+
+
+def resize_coeffs(in_size: int, out_size: int,
+                  kind: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
     """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for one axis:
     (first input index [out], fixed-point weights [out, taps] int32). Taps
     past an output's last input have weight 0."""
+    kernel, radius = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = radius * filterscale
     taps = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) cast truncates towards zero
     first = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
     last = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size)
     k = np.arange(taps)[None, :]
-    w = _bicubic((k + first[:, None] - center[:, None] + 0.5) / filterscale)
+    w = kernel((k + first[:, None] - center[:, None] + 0.5) / filterscale)
     w = np.where(k < (last - first)[:, None], w, 0.0)
     total = w.sum(axis=1, keepdims=True)
     w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
@@ -103,10 +122,10 @@ def resize_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return first, fixed.astype(np.int32)
 
 
-def _resize_axis(img: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
+def _resize_axis(img: torch.Tensor, out_size: int, axis: int, kind: str) -> torch.Tensor:
     """One 8-bit pass of PIL's resampler along ``axis`` of uint8 [H, W, C]."""
     in_size = img.shape[axis]
-    first, weights = resize_coeffs(in_size, out_size)
+    first, weights = resize_coeffs(in_size, out_size, kind)
     dev = img.device
     first, weights = _on(dev, first), _on(dev, weights)
     shape = [1, 1, 1]
@@ -119,12 +138,29 @@ def _resize_axis(img: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
     return (acc >> _PRECISION).clamp(0, 255).to(torch.uint8)
 
 
+def _resize(img: torch.Tensor, size: Tuple[int, int], kind: str) -> torch.Tensor:
+    w, h = size
+    if w != img.shape[1]:
+        img = _resize_axis(img, w, 1, kind)
+    if h != img.shape[0]:
+        img = _resize_axis(img, h, 0, kind)
+    return img
+
+
 def resize_bicubic(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """uint8 [H, W, C] -> uint8 [h, w, C] at ``size`` = (w, h), as
     ``Image.resize(size, Image.BICUBIC)``: horizontal pass, then vertical."""
-    w, h = size
-    if w != img.shape[1]:
-        img = _resize_axis(img, w, 1)
-    if h != img.shape[0]:
-        img = _resize_axis(img, h, 0)
-    return img
+    return _resize(img, size, "bicubic")
+
+
+def resize_lanczos(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """uint8 [H, W, C] -> uint8 [h, w, C] at ``size`` = (w, h), as
+    ``Image.resize(size, Image.LANCZOS)``."""
+    return _resize(img, size, "lanczos")
+
+
+def rgb_to_l(rgb: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., 3] RGB -> uint8 [...] luma, as ``Image.convert("L")``."""
+    c = rgb.int()
+    return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471 + 0x8000)
+            >> 16).to(torch.uint8)

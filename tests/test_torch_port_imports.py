@@ -1,6 +1,7 @@
 """Import hygiene: the port imports nothing of JAX and nothing of ``dreamlab_tpu``,
 reads safetensors files without the ``safetensors`` package, YAML without
-PyYAML, and imports PIL only inside a call that needs it."""
+PyYAML, serves HTTP without aiohttp, pydantic, requests, multidict and yarl,
+and imports PIL and websocket-client only inside a call that needs them."""
 
 import os
 import pkgutil
@@ -11,6 +12,10 @@ import sys
 import dreamlab_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# PIL is imported only by a job that needs its codecs, websocket-client only
+# by a ComfyUI run that opens its socket
+FORBIDDEN = ("jax", "jaxlib", "dreamlab_tpu", "safetensors", "yaml", "PIL", "aiohttp",
+             "pydantic", "pydantic_core", "requests", "multidict", "yarl", "websocket")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -22,7 +27,14 @@ def test_importing_every_module_loads_no_jax():
                 "textual_inversion", "engine.styles", "engine.model_registry",
                 "utils.yaml_lite", "models.controlnet", "engine.worker_pool",
                 "engine.mode_config", "engine.file_watcher", "models.superres",
-                "utils.onnx_weights", "utils.image_ops", "serving.superres_service"):
+                "utils.onnx_weights", "utils.image_ops", "serving.superres_service",
+                "serving.http", "serving.schemas", "serving.app", "serving.model_routes",
+                "serving.compat_endpoints", "serving.legacy_service", "serving.request_logger",
+                "serving.logging_config", "serving.run", "serving.comfy_routes",
+                "serving.startup_hooks", "persistence", "persistence.storage_provider",
+                "persistence.filesystem_provider", "persistence.redis_provider", "utils.resp",
+                "utils.verify_cuda", "invokers.jobs", "invokers.profiles",
+                "invokers.workflow_store", "invokers.comfy_client", "cli"):
         assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -31,13 +43,7 @@ def test_importing_every_module_loads_no_jax():
         "counts = {m: sys.modules[m].LAUNCHES for m in sys.modules"
         " if m.startswith('dreamlab_tpu_torch.') and hasattr(sys.modules[m], 'LAUNCHES')}\n"
         "assert len(counts) >= 5 and not any(counts.values()), counts\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'jaxlib' or m.startswith('jaxlib.')"
-        " or m == 'dreamlab_tpu' or m.startswith('dreamlab_tpu.')"
-        " or m == 'safetensors' or m.startswith('safetensors.')"
-        " or m == 'yaml' or m.startswith('yaml.')"
-        # PIL is imported only by a super-resolution job that needs its codecs
-        " or m == 'PIL' or m.startswith('PIL.'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -46,9 +52,32 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_serving_a_request_loads_none_of_them():
+    """``create_app`` and one ``/health`` request over a real socket, in a
+    fresh process: none of the forbidden packages is loaded."""
+    code = (
+        "import http.client, sys\n"
+        "from dreamlab_tpu_torch.serving.app import ServerConfig, create_app\n"
+        "from dreamlab_tpu_torch.serving.http import ServerThread\n"
+        "srv = ServerThread(create_app(ServerConfig(), skip_startup=True)).start()\n"
+        "c = http.client.HTTPConnection('127.0.0.1', srv.port, timeout=60)\n"
+        "c.request('GET', '/health'); r = c.getresponse()\n"
+        "assert r.status == 200 and b'ok' in r.read()\n"
+        "srv.stop()\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_name_no_jax_import():
-    pattern = re.compile(r"^(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml|PIL)(\.|\s|$)"
-                         r"|^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml)(\.|\s|$)",
+    pattern = re.compile(r"^(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml|PIL|aiohttp|"
+                         r"pydantic|requests|multidict|yarl|websocket)(\.|\s|$)"
+                         r"|^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml|aiohttp|"
+                         r"pydantic|requests|multidict|yarl)(\.|\s|$)",
                          re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "dreamlab_tpu_torch")):

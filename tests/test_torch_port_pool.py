@@ -412,6 +412,65 @@ def test_mode_cache_evicts_before_load_when_memory_is_tight(tmp_path, monkeypatc
         pool.shutdown(drain=False, timeout=1)
 
 
+def test_a_reload_is_admitted_on_the_measured_footprint(tmp_path, monkeypatch):
+    """The registry's estimate sees checkpoint bytes only; a build measures
+    3x as much. A mode never built is admitted on the estimate (tenant c
+    fits beside a and b on it, and overfills the card); once c has been
+    built and evicted, its reload is admitted on the measured bytes and
+    evicts the LRU tenant b first, which the estimate alone would not."""
+    monkeypatch.setenv("DREAMLAB_MODE_CACHE", "3")
+    names = ("a", "b", "c")
+    for name in names:
+        (tmp_path / f"{name}.safetensors").write_bytes(b"x" * 200)  # estimate 120 B
+    cfg = ModeConfigManager(testing.write_modes_yaml(
+        str(tmp_path / "m.yaml"), {n: {"model": f"{n}.safetensors"} for n in names},
+        default_mode="a", model_root=str(tmp_path)))
+    build = 3 * ModelRegistry.estimate_model_hbm(str(tmp_path / "a.safetensors"))
+    order = []
+
+    class Card(ModelRegistry):
+        """A registry over a simulated card whose used bytes the workers move."""
+        used = 0
+
+        def get_used_hbm(self):
+            return self.used
+
+    reg = Card(total_hbm_bytes=1000, device="cpu")  # loads may fill 900 B
+
+    class W:
+        def __init__(self, path):
+            self.mode = os.path.basename(path)[0]
+            reg.used += build
+            order.append(("built", self.mode))
+
+        def run_job(self, spec):
+            return self.mode.encode(), spec.seed
+
+        def close(self):
+            reg.used -= build
+            order.append(("closed", self.mode))
+
+    pool = WorkerPool(queue_max=8, worker_factory=lambda i, p: W(p), mode_config=cfg,
+                      registry=reg)
+
+    def tenant(name):
+        return pool.submit_job(GenerationJob(spec(seed=1, mode=name))).result(timeout=5)
+
+    try:
+        assert tenant("b") == (b"b", 1) and tenant("c") == (b"c", 1)
+        assert reg.used == 3 * build > 900  # c was admitted on its estimate
+        assert [m.hbm_bytes for m in reg.list_models()] == [build] * 3
+        assert pool.evict_mode("c") and reg.used == 2 * build
+        assert reg.can_fit(reg.estimate_model_hbm(str(tmp_path / "c.safetensors")))
+        order.clear()
+        assert tenant("c") == (b"c", 1)
+        assert order == [("closed", "b"), ("built", "c")]
+        assert pool.current_mode == "a" and pool.get_status()["warm_modes"] == ["c"]
+        assert reg.used == 2 * build
+    finally:
+        pool.shutdown(drain=False, timeout=1)
+
+
 def test_mode_cache_invalidated_by_config_change(tmp_path, monkeypatch):
     monkeypatch.setenv("DREAMLAB_MODE_CACHE", "4")
     path = str(tmp_path / "m.yaml")

@@ -246,6 +246,44 @@ def test_bicubic_resize_equals_pil(shape, size):
                                   want)
 
 
+@pytest.mark.parametrize("shape,size", [((32, 32, 3), (48, 40)), ((40, 56, 3), (16, 24)),
+                                        ((17, 23, 3), (9, 64)), ((64, 64, 3), (30, 64)),
+                                        ((512, 512, 3), (64, 64)), ((16, 16, 3), (512, 512))])
+def test_lanczos_resize_equals_pil(shape, size):
+    """The ControlNet hint's resize (``Image.resize(..., LANCZOS)``) at up-
+    and down-scales, byte for byte."""
+    arr = np.random.RandomState(shape[1]).randint(0, 256, shape).astype(np.uint8)
+    want = np.asarray(Image.fromarray(arr).resize(size, Image.LANCZOS))
+    np.testing.assert_array_equal(image_ops.resize_lanczos(torch.from_numpy(arr), size).numpy(),
+                                  want)
+
+
+def test_rgb_to_l_equals_pil_on_every_colour():
+    v = np.arange(1 << 24, dtype=np.uint32)
+    cube = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1).astype(np.uint8)
+    cube = cube.reshape(4096, 4096, 3)
+    got = image_ops.rgb_to_l(torch.from_numpy(cube)).numpy()
+    assert (got != np.asarray(Image.fromarray(cube).convert("L"))).sum() == 0
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P", "I;16"])
+def test_decode_l_equals_pil(mode):
+    """The inpainting mask's decode (``convert("L")``): PNGs of every kind
+    the port reads, and a 16-bit one that goes to PIL."""
+    rgb = _picture(21, 34)
+    if mode == "P":
+        img = Image.fromarray(rgb).quantize(32)
+    elif mode == "I;16":
+        img = Image.fromarray((rgb[..., 0].astype(np.uint16) * 257))
+    else:
+        img = Image.fromarray(rgb).convert(mode)
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    data = buf.getvalue()
+    np.testing.assert_array_equal(srs.decode_l(data),
+                                  np.asarray(Image.open(io.BytesIO(data)).convert("L")))
+
+
 # ---------------------------------------------------------------------------
 # the worker against the JAX package's
 # ---------------------------------------------------------------------------
