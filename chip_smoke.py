@@ -76,6 +76,26 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    GroupNorm+SiLU kernels); ``/api/modes/switch`` to ``c`` with
    ``wait_seconds`` then ``X-Mode``, ``/v1/controlnet`` = the worker's
    ``run_job`` with the hint, a tenant request for ``b``; stage times;
+6d. Yume (counts reset before it, read after it): a full-width CLIP
+   ViT-B/32 directory (``openai/clip-vit-base-patch32``'s config, seeded
+   random fp32 weights, the test tokenizer's vocabulary filled to 49408) and
+   ``create_app(device="cuda")`` with ``YUME_ENABLED`` over mode ``a`` of
+   the loader phase's directory, a style over the mode LoRA's file: the
+   dream worker bound to the pool's worker with the native CLIP scorer on
+   the card; features and the scores of a candidate batch held to the same
+   directory on the CPU (scores within 1e-4, features 1e-4 of their
+   largest magnitude); a candidate batch (64², batch 4, 1 step) = each
+   seed's solo ``run_job`` PNG decoded, a render = ``run_job``'s PNG, also
+   while styled pool requests are in flight; medians of the candidate
+   batch's generation, of scoring it with the text cached and of a render;
+   the candidate bucket's capture seconds and bytes; one session of 16
+   batches over ``/dreams/start`` (dreams/s), a second start 409,
+   ``stop``, ``top``, ``recent``, ``status``, ``/dreams/image/{id}`` =
+   ``run_job`` at the render size, 404; 16 pool requests with a session
+   running and without, in turns (img/s, every PNG = ``run_job``'s), the
+   busy share beside a session; then the census of a candidate batch (0
+   flash, 74 GroupNorm+SiLU), its shapes checked and timed, a profiled
+   candidate batch and render;
 7. SD1.5 extras: a new full-width worker with two styles (rank-8 LoRAs over
    every projection the key map reaches, kohya and diffusers dialect).
    Styles path (counts reset before it): unstyled, A at level 3 (its first
@@ -143,8 +163,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    kernel's bound, and prints one ``{"probes": {...}}`` line;
 10. prints the run's seconds (``{"total_s": ...}``), the ``{"kernels": [...]}``
    line (each kernel on the SD1.5 main path, K1 and K2+K3 on the pool
-   path (``_pool``: its launches, the SD1.5 census's times) and on the
-   server path (``_server``, likewise), then on the
+   path (``_pool``: its launches, the SD1.5 census's times), on the
+   server path (``_server``, likewise) and on the Yume path (``_yume`` at
+   the render's shapes, ``_yume_candidates`` at a candidate batch's), then on the
    SDXL path with a ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
    ``_encoder_sdxl``), K1 at 1344x768, K1 and K2+K3 on the ControlNet path
    (``_controlnet``) and at the refiner segment's shapes (``_refiner``),
@@ -209,6 +230,7 @@ from dreamlab_tpu_torch.testing import (CONTROLNET_COND_CHANNELS, SD15_CONTROLNE
 from dreamlab_tpu_torch.utils import image_ops
 from dreamlab_tpu_torch.utils.png import decode_png, encode_png
 from dreamlab_tpu_torch.utils.safetensors import save_file
+from dreamlab_tpu_torch.yume import dream_worker as dw
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # operations over the peak for the inputs' type and bytes over HBM bandwidth
@@ -509,9 +531,11 @@ def per_request_of(seen) -> dict:
             "gn_stats": gn_calls, "gn_apply": gn_calls}
 
 
-def time_kernels(seen, dtype, errs) -> dict:
+def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
     """Each census shape: the kernel against its plain version, then timed
-    (per-request totals: each shape's time times its count in ``seen``)."""
+    (per-request totals: each shape's time times its count in ``seen``);
+    without ``parts`` GroupNorm's two phases are not timed apart (K2 and K3
+    alone), only the fused call the paths run."""
     rows = {k: collections.defaultdict(float) for k in ("flash", "gn_stats", "gn_apply", "gn")}
     for (kind, shape, extra), count in sorted(seen.items()):
         if kind == "flash":
@@ -544,29 +568,32 @@ def time_kernels(seen, dtype, errs) -> dict:
             c, device="cuda", dtype=dtype)
         check = {"coeffs_err": check_coeffs(x, gamma, beta, groups),
                  **check_gn(x, gamma, beta, groups, True, errs, f"census {list(shape)}")}
-        a, sh = gn.group_norm_coeffs(x, gamma, beta, groups=groups)
         xn = x.permute(0, 3, 1, 2)
         nbytes, numel = x.numel() * x.element_size(), x.numel()
         coeff_bytes = 2 * 4 * shape[0] * c
-        t2 = {"ms": device_ms(lambda: gn.group_norm_coeffs(x, gamma, beta, groups=groups)),
-              "plain_ms": device_ms(lambda: gn.group_norm_coeffs_plain(x, gamma, beta,
-                                                                     groups=groups)),
-              "library_ms": None}
-        b2 = bound_ms(4.0 * numel, nbytes + coeff_bytes, torch.float32)
-        t3 = {"ms": device_ms(lambda: gn.scale_shift_silu(x, a, sh)),
-              "plain_ms": device_ms(lambda: gn.scale_shift_silu_plain(x, a, sh)),
-              "library_ms": None}
-        b3 = bound_ms(6.0 * numel, 2 * nbytes + coeff_bytes, torch.float32)
+        if parts:
+            a, sh = gn.group_norm_coeffs(x, gamma, beta, groups=groups)
+            t2 = {"ms": device_ms(lambda: gn.group_norm_coeffs(x, gamma, beta, groups=groups)),
+                  "plain_ms": device_ms(lambda: gn.group_norm_coeffs_plain(x, gamma, beta,
+                                                                         groups=groups)),
+                  "library_ms": None}
+            b2 = bound_ms(4.0 * numel, nbytes + coeff_bytes, torch.float32)
+            t3 = {"ms": device_ms(lambda: gn.scale_shift_silu(x, a, sh)),
+                  "plain_ms": device_ms(lambda: gn.scale_shift_silu_plain(x, a, sh)),
+                  "library_ms": None}
+            b3 = bound_ms(6.0 * numel, 2 * nbytes + coeff_bytes, torch.float32)
         tc = {"ms": device_ms(lambda: gn.fused_group_norm_silu(x, gamma, beta, groups=groups)),
               "plain_ms": device_ms(lambda: gn.group_norm_plain(x, gamma, beta, groups=groups,
                                                               silu=True)),
               "library_ms": device_ms(lambda: F.silu(F.group_norm(xn, groups, gamma, beta)))}
         bc = bound_ms(10.0 * numel, 2 * nbytes, torch.float32)
-        log({"time": "gn", "shape": list(shape), "count": count, "stats": {**t2, "bound_ms": b2[0]},
-             "apply": {**t3, "bound_ms": b3[0]}, "fused": {**tc, "bound_ms": bc[0]},
-             "check": check})
-        _accumulate(rows["gn_stats"], t2, *b2, count)
-        _accumulate(rows["gn_apply"], t3, *b3, count)
+        log({"time": "gn", "shape": list(shape), "count": count,
+             **({"stats": {**t2, "bound_ms": b2[0]}, "apply": {**t3, "bound_ms": b3[0]}}
+                if parts else {}),
+             "fused": {**tc, "bound_ms": bc[0]}, "check": check})
+        if parts:
+            _accumulate(rows["gn_stats"], t2, *b2, count)
+            _accumulate(rows["gn_apply"], t3, *b3, count)
         _accumulate(rows["gn"], tc, *bc, count)
     return rows
 
@@ -1499,6 +1526,288 @@ def server_phase(root: str, onnx: str, per_request) -> tuple:
            f"the server path launched {launched}")
     out.update(launches=launched, path_s=time.perf_counter() - t0)
     return {"server": out}, launched
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: Yume dreaming on the server's pool (CLIP ViT-B/32 scorer)
+# ---------------------------------------------------------------------------
+
+YUME_PROMPT = "a lighthouse on a cliff"
+YUME_SEEDS = [1301, 1302, 1303, 1304]  # one candidate batch (the worker's batch of 4)
+YUME_TIMED = 10  # candidate batches and scorings timed (median)
+YUME_RENDERS = 5  # renders timed (median)
+YUME_ITERATIONS = 16  # the dreams/s session's candidate batches
+YUME_POOL = 16  # pool requests a round, with a dream session running and without
+# a candidate batch (64², batch 4, 1 step): the UNet's 45 GroupNorm+SiLU calls
+# and the VAE decode's 29; its attention runs over at most 64 tokens, under
+# the flash rule's 256 (ops/attention.py), so no K1
+YUME_CANDIDATE_PER_BATCH = {"flash": 0, "gn": 45 + 29, "gn_stats": 74, "gn_apply": 74}
+TOL_CLIP_SCORE = 1e-4  # card against CPU, fp32 on both: a score's absolute error
+TOL_CLIP_FEATURES = 1e-4  # a feature's error over the largest feature magnitude
+
+
+class StopAfter:
+    """A scorer that ends its dream session after ``batches`` candidate
+    batches (the loop reads its stop flag before each batch): a session of a
+    fixed iteration count."""
+
+    def __init__(self, scorer, dream, batches: int):
+        self.scorer, self.dream, self.batches, self.calls = scorer, dream, batches, 0
+
+    def score_batch(self, images, prompt):
+        self.calls += 1
+        if self.calls >= self.batches:
+            self.dream._stop.set()  # a flag the loop polls: no waiter to wake
+        return self.scorer.score_batch(images, prompt)
+
+
+def clip_against_cpu(card_model, clip_dir: str, images) -> dict:
+    """The card's CLIP features and CLIPScorer scores against the same
+    directory loaded on the CPU (fp32 both)."""
+    from dreamlab_tpu_torch.loader import load_clip_model
+    from dreamlab_tpu_torch.yume.scoring import CLIPScorer
+
+    cpu_model = load_clip_model(clip_dir, device="cpu")
+    rel = lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+    text = rel(card_model.embed_text(YUME_PROMPT), cpu_model.embed_text(YUME_PROMPT))
+    feats = rel(card_model.embed_images(images), cpu_model.embed_images(images))
+    card_scores = CLIPScorer(card_model).score_batch(images, YUME_PROMPT)
+    cpu_scores = CLIPScorer(cpu_model).score_batch(images, YUME_PROMPT)
+    score_err = max(abs(a - b) for a, b in zip(card_scores, cpu_scores))
+    expect(text <= TOL_CLIP_FEATURES and feats <= TOL_CLIP_FEATURES,
+           f"CLIP features card vs CPU: text {text}, image {feats} over {TOL_CLIP_FEATURES}")
+    expect(score_err <= TOL_CLIP_SCORE, f"CLIP scores card vs CPU: {score_err}")
+    return {"text_rel_err": text, "image_rel_err": feats, "score_max_abs_err": score_err,
+            "limit_score": TOL_CLIP_SCORE, "limit_features_rel": TOL_CLIP_FEATURES,
+            "scores_card": card_scores, "scores_cpu": cpu_scores}
+
+
+def yume_path(root: str, ckpt: str, style_lora: str) -> tuple:
+    """``create_app(device="cuda")`` with ``YUME_ENABLED`` over mode ``a`` of
+    the loader phase's SD1.5 directory (a style ``s`` over the mode LoRA's
+    file), ``YUME_CLIP_MODEL`` a full-width CLIP ViT-B/32 directory of seeded
+    random fp32 weights: the native rung on the card, held to the CPU;
+    candidates = their solo runs, renders = run_job, also beside styled pool
+    requests; medians of candidate generation, scoring and renders;
+    dreams/s over one session of YUME_ITERATIONS batches; the pool's img/s
+    with a session running and without; /dreams/* over HTTP. Returns the
+    phase's line, the server (still up, for the census) and its state."""
+    from dreamlab_tpu_torch.engine.styles import reset_style_registry
+    from dreamlab_tpu_torch.models.configs import CLIP_VIT_B32_TEXT, CLIP_VIT_B32_VISION
+
+    t_start = time.perf_counter()
+    text_cfg, vision_cfg = CLIP_VIT_B32_TEXT, CLIP_VIT_B32_VISION
+    tok = testing.clip_tokenizer(text_cfg.vocab_size)  # EOS last, as CLIP's own vocabulary
+    text_params, vision_params = testing.random_clip(text_cfg, vision_cfg, seed=21,
+                                                     device="cuda")
+    clip_dir = testing.write_clip_dir(os.path.join(root, "clip-vit-base-patch32"), text_params,
+                                      text_cfg, vision_params, vision_cfg, tok)
+    del text_params, vision_params
+    styles = os.path.join(root, "styles.yaml")
+    with open(styles, "w") as f:
+        f.write(f"styles:\n  s:\n    file: {style_lora}\n    strengths: [1.0]\n")
+    defaults = {"size": f"{SIZE}x{SIZE}", "steps": STEPS}
+    modes = testing.write_modes_yaml(os.path.join(root, "modes_yume.yaml"),
+                                     {"a": {"model": ckpt, "defaults": defaults}},
+                                     default_mode="a")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    os.environ.update(YUME_CLIP_MODEL=clip_dir, STYLES_CONFIG=styles, YUME_FINALIZE_RENDERS="4",
+                      DREAMLAB_MODE_CACHE="1", DREAMLAB_MAX_BATCH="1",
+                      REDIS_PORT=str(sock.getsockname()[1]))  # nothing listens: in memory
+    sock.close()
+    reset_style_registry()
+    reset_model_registry()
+    out = {"write_s": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    app = server_app.create_app(server_app.ServerConfig(
+        modes_config=modes, default_size=f"{SIZE}x{SIZE}", default_steps=STEPS,
+        yume_enabled=True), device="cuda")
+    srv = ServerThread(app).start()
+    out["startup_s"] = time.perf_counter() - t0
+    state = app[server_app.STATE_KEY]
+    pool, port, dream = state.pool, srv.port, state.dream_worker
+    worker, pipe = pool.worker, pool.worker.pipeline
+    checks = {"dream_bound_to_pool_worker": dream is not None and dream.worker is worker,
+              "native_clip_on_the_card": type(dream.scorer.model).__name__ == "NativeCLIP"
+              and dream.scorer.model.device.type == "cuda"}
+    spec = lambda seed, size=SIZE, steps=STEPS, **kw: GenSpec(
+        YUME_PROMPT, size=f"{size}x{size}", num_inference_steps=steps, seed=seed, **kw)
+    cand_size = int(dream.candidate_size.split("x")[0])
+    solo = lambda seed: decode_png(worker.run_job(spec(seed, cand_size,
+                                                       dream.candidate_steps))[0])
+    # candidates: one batch (its bucket captured on the first) = the solo runs
+    t0 = time.perf_counter()
+    images = dream._generate_candidates(YUME_SEEDS, YUME_PROMPT)
+    out["first_candidate_batch_s"] = time.perf_counter() - t0
+    out["candidate_bucket"] = [b for b in bucket_stats(pipe)
+                               if b["key"][:4] == [len(YUME_SEEDS), cand_size // pipe.vae_scale,
+                                                   cand_size // pipe.vae_scale,
+                                                   dream.candidate_steps]]
+    want = [solo(s) for s in YUME_SEEDS]
+    checks["candidates_eq_solo"] = all(np.array_equal(a, b) for a, b in zip(images, want))
+    # the CLIP scorer on the card against the CPU
+    out["clip"] = clip_against_cpu(dream.scorer.model, clip_dir, images)
+    # medians: candidate generation, scoring with the text cached, renders
+    gen_ms, score_ms = [], []
+    for _ in range(YUME_TIMED):
+        t0 = time.perf_counter()
+        batch = dream._generate_candidates(YUME_SEEDS, YUME_PROMPT)
+        gen_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        dream.scorer.score_batch(batch, YUME_PROMPT)
+        score_ms.append(1e3 * (time.perf_counter() - t0))
+    checks["candidates_repeat"] = all(np.array_equal(a, b) for a, b in zip(batch, images))
+    render_ms = []
+    for i in range(YUME_RENDERS):
+        cand = dw.DreamCandidate(seed=YUME_SEEDS[i % len(YUME_SEEDS)], prompt=YUME_PROMPT,
+                                 score=0.5)
+        t0 = time.perf_counter()
+        dream._render(cand)
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+    checks["render_eq_run_job"] = cand.rendered_png == worker.run_job(spec(cand.seed))[0]
+    out["timing_ms"] = {"candidate_batch": statistics.median(gen_ms),
+                        "score_batch_text_cached": statistics.median(score_ms),
+                        "render": statistics.median(render_ms),
+                        "samples": {"candidate_batch": YUME_TIMED, "score": YUME_TIMED,
+                                    "render": YUME_RENDERS}}
+    # candidate batches while styled pool requests are in flight: unstyled
+    styled_specs = [spec(1400 + i, style="s", style_level=1) for i in range(6)]
+    futs = [pool.submit_job(GenerationJob(s)) for s in styled_specs]
+    beside = []
+    while not all(f.done() for f in futs) or not beside:
+        beside.append(dream._generate_candidates(YUME_SEEDS, YUME_PROMPT))
+    styled = [f.result(timeout=POOL_TIMEOUT_S)[0] for f in futs]
+    checks["candidates_beside_styled_requests_unstyled"] = all(
+        np.array_equal(a, b) for batch in beside for a, b in zip(batch, want))
+    checks["styled_pool_pngs_eq_run_job"] = styled == [worker.run_job(s)[0] for s in styled_specs]
+    checks["style_changes_png"] = styled[0] != worker.run_job(spec(1400))[0]
+    out["candidate_batches_beside_styled"] = len(beside)
+    # one session of YUME_ITERATIONS batches over HTTP: dreams/s, /dreams/*
+    base_scorer = dream.scorer
+    dream.score_threshold = 0.0  # random weights score near 0: keep every candidate
+    dream.scorer = StopAfter(base_scorer, dream, YUME_ITERATIONS)
+    status, _, body = http_call(port, "POST", "/dreams/start",
+                                {"prompt": YUME_PROMPT, "strategy": "random"})
+    checks["start_200"] = status == 200
+    checks["second_start_409"] = http_call(port, "POST", "/dreams/start",
+                                           {"prompt": "x"})[0] == 409
+    wait_for(lambda: not dream.get_status()["running"], "the dream session's end")
+    status, _, body = http_call(port, "GET", "/dreams/stats")
+    stats = json.loads(body)
+    out["session"] = {k: stats[k] for k in ("generated", "scored", "kept", "rendered",
+                                            "dreams_per_sec")}
+    checks["session_counts"] = (stats["generated"], stats["scored"]) == (
+        4 * YUME_ITERATIONS, 4 * YUME_ITERATIONS)
+    status, _, body = http_call(port, "POST", "/dreams/stop")
+    checks["stop_200"] = status == 200 and not json.loads(body)["running"]
+    status, _, body = http_call(port, "GET", "/dreams/top?n=5")
+    top = json.loads(body)["top"]
+    checks["top"] = status == 200 and len(top) == 5 and top == dream.get_top_dreams(5)
+    checks["recent"] = http_call(port, "GET", "/dreams/recent")[0] == 200
+    checks["status"] = http_call(port, "GET", "/dreams/status")[0] == 200
+    rendered = [c for c in dream.top if c.rendered_png is not None]
+    served = []
+    for cand in rendered[:3]:
+        status, hdr, png = http_call(port, "GET", f"/dreams/image/{cand.candidate_id}")
+        want_png = worker.run_job(GenSpec(cand.prompt, size=dream.render_size,
+                                          num_inference_steps=dream.render_steps,
+                                          seed=cand.seed))[0]
+        served.append(status == 200 and hdr["content-type"] == "image/png" and png == want_png)
+    checks["image_eq_run_job"] = len(served) > 0 and all(served)
+    checks["image_404"] = http_call(port, "GET", "/dreams/image/0123456789abcdef")[0] == 404
+    dream.scorer = base_scorer
+    # the pool beside a session and without one, in turns
+    seeds = list(range(1500, 1500 + YUME_POOL))
+    pool_want = [worker.run_job(spec(s))[0] for s in seeds]
+
+    def pool_round(with_dreams: bool):
+        if with_dreams:
+            expect(http_call(port, "POST", "/dreams/start", {"prompt": YUME_PROMPT})[0] == 200,
+                   "yume: a session beside the pool did not start")
+            wait_for(lambda: dream.stats["generated"] > 0, "the first candidates")
+        secs, pngs, _ = pool_run(pool, [spec(s) for s in seeds])
+        generated = dream.stats["generated"]
+        if with_dreams:
+            http_call(port, "POST", "/dreams/stop")
+        check_same([p for p, _ in pngs], pool_want, "pool PNGs beside a dream session"
+                   if with_dreams else "pool PNGs")
+        return {"with_dreams" if with_dreams else "without": YUME_POOL / secs,
+                "candidates_meanwhile": generated if with_dreams else 0}
+
+    rounds = [pool_round(w) for w in (True, False, False, True)]
+    http_call(port, "POST", "/dreams/start", {"prompt": YUME_PROMPT})
+    wait_for(lambda: dream.stats["generated"] > 0, "the first candidates")
+    prof = profile(lambda: pool_run(pool, [spec(s) for s in seeds]))
+    http_call(port, "POST", "/dreams/stop")
+    out["beside_pool"] = {"img_per_s": rounds, "profile_16_with_dreams": {
+        k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernel_launches",
+                             "port_kernels")}}
+    for name, ok in checks.items():
+        expect(bool(ok), f"yume: {name}")
+    out["checks"] = checks
+    out["path_s"] = time.perf_counter() - t_start
+    return out, srv, state
+
+
+def yume_phase(root: str, rows, errs) -> tuple:
+    """Phase 6d: counts reset before the Yume path and read after it (the
+    default 512² bucket captured at startup, the candidate buckets on their
+    first batch); then, outside the count, the census of a candidate batch on
+    the eager route, its GroupNorm shapes checked and timed, and a profiled
+    candidate batch and render. Returns the phase's line and the kernels
+    line's ``_yume`` entries."""
+    t0 = time.perf_counter()
+    reset_counts()
+    out, srv, state = yume_path(root, os.path.join(root, "sd15"),
+                                os.path.join(root, "mode_lora.safetensors"))
+    launched = counts()
+    try:
+        dream, pipe = state.dream_worker, state.pool.worker.pipeline
+        expect(all(launched[k] > 0 for k in ("flash", "gn")), f"the Yume path launched {launched}")
+        size = int(dream.candidate_size.split("x")[0])
+        h_lat = size // pipe.vae_scale
+        lats, noises = zip(*(pipe._sample_noise(s, 1, h_lat, h_lat, dream.candidate_steps, 1.0)
+                             for s in YUME_SEEDS))
+        seen = census(pipe, run=lambda: pipe._generate_eager(
+            [YUME_PROMPT] * len(YUME_SEEDS), height=size, width=size,
+            num_inference_steps=dream.candidate_steps, seed=YUME_SEEDS[0],
+            latents=np.stack([lat[0] for lat in lats]),
+            step_noises=np.stack([n[:, 0] for n in noises], axis=1)))
+        per_batch = per_request_of(seen)
+        expect(per_batch == YUME_CANDIDATE_PER_BATCH,
+               f"candidate batch census {per_batch}, expected {YUME_CANDIDATE_PER_BATCH}")
+        cand_errs = collections.defaultdict(float)
+        cand_rows = time_kernels(seen, torch.bfloat16, cand_errs, parts=False)
+        prof_cand = profile(lambda: dream._generate_candidates(YUME_SEEDS, YUME_PROMPT))
+        prof_render = profile(lambda: state.pool.worker.run_job(GenSpec(
+            YUME_PROMPT, size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS, seed=7)))
+        ran = lambda prof: {k: prof["port_kernels"].get(k, 0)
+                            for k in ("flash_mma_kernel", "gn_cluster_kernel")}
+        expect(ran(prof_cand) == {"flash_mma_kernel": 0,
+                                  "gn_cluster_kernel": YUME_CANDIDATE_PER_BATCH["gn"]},
+               f"a profiled candidate batch ran {prof_cand['port_kernels']}")
+        expect(ran(prof_render) == {"flash_mma_kernel": 40, "gn_cluster_kernel": 209},
+               f"a profiled render ran {prof_render['port_kernels']}")
+        out["census_candidate_batch"] = per_batch
+        out["profile_candidate_batch"] = {k: prof_cand[k] for k in (
+            "wall_ms", "device_busy_ms", "busy_share", "kernel_launches", "port_kernels")}
+        out["profile_render"] = {k: prof_render[k] for k in (
+            "wall_ms", "device_busy_ms", "busy_share", "kernel_launches", "port_kernels")}
+        out["per_candidate_batch_ms"] = {k: dict(v) for k, v in cand_rows.items()
+                                         if k == "gn"}
+    finally:
+        srv.stop()  # the cleanup hooks stop the dream session, the pool and the SR service
+        for name in ("YUME_CLIP_MODEL", "STYLES_CONFIG", "YUME_FINALIZE_RENDERS", "REDIS_PORT"):
+            os.environ.pop(name, None)
+        from dreamlab_tpu_torch.engine.styles import reset_style_registry
+
+        reset_style_registry()
+        dw.set_dream_worker(None)
+    out.update(launches=launched, phase_s=time.perf_counter() - t0)
+    entries = (kernel_entries(rows, launched, errs, "_yume", ("flash", "gn"))
+               + kernel_entries(cand_rows, launched, cand_errs, "_yume_candidates", ("gn",)))
+    return {"yume": out}, entries
 
 
 # ---------------------------------------------------------------------------
@@ -2700,6 +3009,9 @@ def main() -> int:
             root, os.path.join(root, "super-resolution-10.onnx"), per_request)
         end_phase("server")
         log({**server_line, "phase_s": time.perf_counter() - t0, "card": smi})
+        yume_line, yume_entries = yume_phase(root, rows, errs)
+        end_phase("yume")
+        log({**yume_line, "card": smi})
 
     enc_rows, enc_launches, enc_errs, extras_line = sd15_extras_phase(per_request, seen)
     log(extras_line)
@@ -2725,6 +3037,7 @@ def main() -> int:
     kernels = (kernel_entries(rows, result["launches"], errs)
                + kernel_entries(rows, pool_launches, errs, "_pool", ("flash", "gn"))
                + kernel_entries(rows, server_launches, errs, "_server", ("flash", "gn"))
+               + yume_entries
                + kernel_entries(xl_rows, xl_launches, xl_errs, "_sdxl", ("flash", "gn"))
                + kernel_entries(enc_rows, enc_launches, enc_errs, "_encoder", ("gn",))
                + kernel_entries(*xl_i2i, "_encoder_sdxl", ("gn",))

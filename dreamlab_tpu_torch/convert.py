@@ -1,10 +1,13 @@
 """Parameter trees of the JAX package -> the port's (torch layout).
 
 ``from_jax_numpy`` takes trees in the schema of the JAX package's
-``clip_text.init_params`` / ``unet.init_params`` / ``vae.init_decoder_params``
-/ ``vae.init_encoder_params`` / ``controlnet.init_params`` (as loaded by its
-``load_pipeline`` and ``load_controlnet``; a ControlNet's hint ladder and
-zero-conv taps are lists of convs, converted as every conv is), with numpy
+``clip_text.init_params`` / ``clip_vision.init_params`` / ``unet.init_params``
+/ ``vae.init_decoder_params`` / ``vae.init_encoder_params`` /
+``controlnet.init_params`` (as loaded by its ``load_pipeline``,
+``load_controlnet`` and ``load_clip_model``; a ControlNet's hint ladder and
+zero-conv taps are lists of convs, converted as every conv is; the CLIP
+image tower's patch conv and projection are a conv and a linear, its class
+embedding a bare vector under no ``w``, kept as it is), with numpy
 leaves (``np.asarray`` of each JAX array), and returns the same trees as
 torch tensors in the port's
 layout: conv kernels HWIO -> OIHW, linear kernels ``[in, out]`` ->
@@ -40,6 +43,6 @@ def _convert(tree, parent: str = ""):
 
 
 def from_jax_numpy(tree):
-    """Convert one parameter tree (text, UNet, VAE decoder or encoder,
-    ControlNet) to the port's layout."""
+    """Convert one parameter tree (text, CLIP image tower, UNet, VAE decoder
+    or encoder, ControlNet) to the port's layout."""
     return _convert(tree)

@@ -56,6 +56,7 @@ Ensemble requests run solo (``supports_batching``, ``batchable``).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -170,6 +171,15 @@ class CudaPipelineWorker:
             logger.info("style %s level %d (scale %.2f) %s in %.0f ms", style, level, scale,
                         "applied from the cache" if cached is not None else "merged",
                         1e3 * (time.perf_counter() - t0))
+
+    @contextlib.contextmanager
+    def unstyled(self):
+        """Hold the worker's lock and give its pipeline: until released, the
+        pipeline's weights are the base ones (every request restores them,
+        queued behind its replay, before it lets the lock go). Yume's
+        candidate batches call the pipeline under it."""
+        with self._lock:
+            yield self.pipeline
 
     def _registry(self):
         """The model registry of the card this worker's pipeline is on."""

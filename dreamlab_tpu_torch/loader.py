@@ -13,6 +13,10 @@ weights load as stored: norms become ``{"scale", "bias"}``, and the 1x1-conv
 ``proj_in``/``proj_out`` of SD1.5 checkpoints become linears. Tensors keep
 the file's dtype (the pipeline casts them) and are moved to ``device``.
 A single file (LDM layout) goes to ``loader_single_file.py``.
+
+``load_clip_model`` reads an HF ``CLIPModel`` directory (both towers in one
+file, the tokenizer beside it or in ``tokenizer/``) into Yume's native CLIP
+scorer.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .models import controlnet
-from .models.configs import CLIPTextConfig, UNetConfig, VAEConfig
+from .models.configs import CLIPTextConfig, CLIPVisionConfig, UNetConfig, VAEConfig
 from .pipeline import PipelineBundle, resolve_device
 from .scheduler.lcm import LCMConfig, load_scheduler_config
 from .utils.safetensors import load_file
@@ -407,6 +411,94 @@ def convert_clip_text(tensors: Dict[str, torch.Tensor], cfg: CLIPTextConfig, *,
         params["text_projection"] = w.linear("text_projection")
     w.warn_unused("text encoder")
     return params
+
+
+def convert_clip_vision(tensors: Dict[str, torch.Tensor], cfg: CLIPVisionConfig, *,
+                        device="cpu") -> Dict:
+    """A transformers ``CLIPVisionModel[WithProjection]`` (or ``CLIPModel``)
+    state dict -> ``models/clip_vision.py``'s tree. Takes both the
+    ``pre_layrnorm`` (HF's historical spelling) and ``pre_layernorm`` keys."""
+    w = _W(tensors, torch.device(device))
+    pre = "vision_model."
+    layers = []
+    for i in range(cfg.num_layers):
+        b = f"{pre}encoder.layers.{i}"
+        layers.append({
+            "ln1": w.norm(b + ".layer_norm1"),
+            "attn": {"q": w.linear(b + ".self_attn.q_proj"),
+                     "k": w.linear(b + ".self_attn.k_proj"),
+                     "v": w.linear(b + ".self_attn.v_proj"),
+                     "out": w.linear(b + ".self_attn.out_proj")},
+            "ln2": w.norm(b + ".layer_norm2"),
+            "fc1": w.linear(b + ".mlp.fc1"),
+            "fc2": w.linear(b + ".mlp.fc2"),
+        })
+    pre_ln = pre + ("pre_layrnorm" if w.has(pre + "pre_layrnorm.weight") else "pre_layernorm")
+    params = {
+        "patch_embedding": {"w": w.raw(pre + "embeddings.patch_embedding.weight")},
+        "class_embedding": w.raw(pre + "embeddings.class_embedding"),
+        "position_embedding": w.embedding(pre + "embeddings.position_embedding"),
+        "pre_ln": w.norm(pre_ln),
+        "layers": layers,
+        "post_ln": w.norm(pre + "post_layernorm"),
+        "visual_projection": w.linear("visual_projection"),
+    }
+    w.warn_unused("vision tower")
+    return params
+
+
+def clip_vision_config_from_json(raw: Dict[str, Any]) -> CLIPVisionConfig:
+    return CLIPVisionConfig(
+        image_size=raw.get("image_size", 224),
+        patch_size=raw.get("patch_size", 32),
+        hidden_size=raw.get("hidden_size", 768),
+        num_layers=raw.get("num_hidden_layers", 12),
+        num_heads=raw.get("num_attention_heads", 12),
+        intermediate_size=raw.get("intermediate_size", 3072),
+        hidden_act=raw.get("hidden_act", "quick_gelu"),
+        layer_norm_eps=raw.get("layer_norm_eps", 1e-5),
+        projection_dim=raw.get("projection_dim", 512),
+    )
+
+
+def load_clip_model(model_dir: str, *, device=None):
+    """An HF ``CLIPModel`` directory (``config.json`` with ``text_config`` and
+    ``vision_config``, a safetensors file, the tokenizer's ``vocab.json`` and
+    ``merges.txt`` in the directory or its ``tokenizer/``) -> a
+    ``yume.scoring.NativeCLIP`` whose weights lie on ``device`` (None: the
+    CUDA device) in the file's dtype."""
+    from .yume.scoring import NativeCLIP
+
+    raw = _read_json(os.path.join(model_dir, "config.json"))
+    tjson, vjson = raw["text_config"], raw["vision_config"]
+    proj = raw.get("projection_dim", 512)
+    text_cfg = CLIPTextConfig(
+        vocab_size=tjson.get("vocab_size", 49408),
+        hidden_size=tjson.get("hidden_size", 512),
+        num_layers=tjson.get("num_hidden_layers", 12),
+        num_heads=tjson.get("num_attention_heads", 8),
+        max_position_embeddings=tjson.get("max_position_embeddings", 77),
+        intermediate_size=tjson.get("intermediate_size", 2048),
+        hidden_act=tjson.get("hidden_act", "quick_gelu"),
+        layer_norm_eps=tjson.get("layer_norm_eps", 1e-5),
+        projection_dim=proj,
+    )
+    vision_cfg = clip_vision_config_from_json({**vjson, "projection_dim": proj})
+    tensors = _load_weights(model_dir)
+    dev = resolve_device(device)
+    # one file holds both towers (and logit_scale): each converter gets its own keys
+    text = {k: v for k, v in tensors.items() if k.startswith(("text_model.", "text_projection."))}
+    vision = {k: v for k, v in tensors.items()
+              if k.startswith(("vision_model.", "visual_projection."))}
+    tok_dir = os.path.join(model_dir, "tokenizer")
+    return NativeCLIP(
+        text_params=convert_clip_text(text, text_cfg, device=dev),
+        text_cfg=text_cfg,
+        vision_params=convert_clip_vision(vision, vision_cfg, device=dev),
+        vision_cfg=vision_cfg,
+        tokenizer=CLIPTokenizer.from_pretrained(tok_dir if os.path.isdir(tok_dir) else model_dir),
+        device=dev,
+    )
 
 
 # ---------------------------------------------------------------------------

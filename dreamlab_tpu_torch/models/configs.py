@@ -1,5 +1,5 @@
-"""Model architecture configs: the SD1.5, SDXL and super-resolution presets and
-their tiny test variants.
+"""Model architecture configs: the SD1.5, SDXL, super-resolution and CLIP
+ViT-B/32 presets and their tiny test variants.
 
 A copy of the dataclasses of ``dreamlab_tpu/models/configs.py`` (importing
 that module pulls in JAX through ``dreamlab_tpu/models/__init__.py``). The
@@ -29,6 +29,25 @@ class CLIPTextConfig:
     penultimate_ln: bool = False
     # OpenCLIP text encoders project the pooled EOS embedding.
     projection_dim: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """ViT image tower (HF CLIPVisionModel layout): Yume's native CLIP scorer."""
+
+    image_size: int = 224
+    patch_size: int = 32
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 512
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +154,14 @@ SDXL_UNET = UNetConfig(
 
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 
+# openai/clip-vit-base-patch32, the default YUME_CLIP_MODEL
+CLIP_VIT_B32_VISION = CLIPVisionConfig()
+
+CLIP_VIT_B32_TEXT = CLIPTextConfig(
+    hidden_size=512, num_layers=12, num_heads=8, intermediate_size=2048,
+    projection_dim=512,
+)
+
 # Tiny presets: same topology, toy widths — used by the CPU test suite.
 TINY_TEXT = CLIPTextConfig(
     vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
@@ -169,4 +196,9 @@ TINY_UNET_XL = UNetConfig(
 TINY_VAE = VAEConfig(
     latent_channels=4, block_out_channels=(16, 32), layers_per_block=1,
     norm_groups=8,
+)
+
+TINY_VISION = CLIPVisionConfig(
+    image_size=32, patch_size=8, hidden_size=32, num_layers=2, num_heads=2,
+    intermediate_size=64, projection_dim=16,
 )

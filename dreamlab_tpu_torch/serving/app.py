@@ -5,10 +5,13 @@ The same routes and contracts as the JAX server: ``/generate``,
 ``/generate/stream`` (SSE), ``/superres``, ``/v1/superres``,
 ``/v1/img2img``, ``/v1/inpaint``, ``/v1/controlnet``, ``/health``,
 ``/storage/*``, plus ``/api/*`` (model_routes), ``/sdapi/v1/*`` and
-``/v1/images/generations`` (compat_endpoints) and ``/v1/comfy/*``
-(comfy_routes); the same ``X-Seed`` / ``X-Mode`` / ``X-SuperRes`` /
-``X-SR-*`` / ``X-ControlNet*`` / ``X-LCM-Image-Key`` / ``X-Strength`` /
-``X-Meta-*`` headers, status codes, JSON bodies and SSE events. Two serving
+``/v1/images/generations`` (compat_endpoints), ``/v1/comfy/*``
+(comfy_routes) and, with ``YUME_ENABLED=1``, ``/dreams/*``
+(``yume/dream_endpoints.py``, a dream worker bound at startup to the
+pool's worker or the legacy service's first); the same ``X-Seed`` /
+``X-Mode`` / ``X-SuperRes`` / ``X-SR-*`` / ``X-ControlNet*`` /
+``X-LCM-Image-Key`` / ``X-Strength`` / ``X-Meta-*`` headers, status codes,
+JSON bodies and SSE events. Two serving
 paths coexist: the mode system (``WorkerPool`` + modes.yaml + registry +
 file watcher + SIGHUP) and the legacy env-configured ``PipelineService``.
 
@@ -22,8 +25,7 @@ Where it differs from the JAX server:
   device; "cpu" runs the plain versions). Without a GPU and without
   ``device="cpu"`` the startup fails and says why: there is no CPU
   fallback;
-- ``YUME_ENABLED=1`` and ``DREAMLAB_MESH`` are refused (the dreams and the
-  multi-device mesh are not ported yet);
+- ``DREAMLAB_MESH`` is refused (the multi-device mesh is not ported yet);
 - there is no compile cache to enable: each process captures its CUDA
   graphs anew.
 """
@@ -138,6 +140,7 @@ class ServerState:
     registry: Optional[object] = None
     watcher: Optional[object] = None
     device: Optional[str] = None  # None: the CUDA device
+    dream_worker: Optional[object] = None  # yume.DreamWorker (YUME_ENABLED)
 
     @property
     def backend(self) -> str:
@@ -694,6 +697,17 @@ async def _startup(app: web.Application):
         except (NotImplementedError, RuntimeError, ValueError):
             pass
 
+    if cfg.yume_enabled:
+        from ..yume.dream_init import initialize_dream_system
+
+        worker = None
+        if state.pool is not None:
+            worker = state.pool.worker
+        elif state.legacy is not None and state.legacy.workers:
+            worker = state.legacy.workers[0]
+        if worker is not None:
+            state.dream_worker = await initialize_dream_system(worker, device=state.device)
+
     if cfg.comfy_enabled:
         from .startup_hooks import start_jobs_reaper
 
@@ -704,6 +718,8 @@ async def _cleanup(app: web.Application):
     state: ServerState = app[STATE_KEY]
     if state.watcher is not None:
         state.watcher.stop()
+    if state.dream_worker is not None:
+        await state.dream_worker.stop_dreaming()
     for svc in (state.pool, state.legacy, state.sr):
         if svc is not None:
             try:
@@ -722,14 +738,10 @@ async def _cleanup(app: web.Application):
 def refuse_unported(cfg: ServerConfig) -> None:
     """Settings that need parts of the JAX package the port lacks fail the
     start instead of being skipped."""
-    if cfg.yume_enabled:
-        raise NotPortedError(
-            "YUME_ENABLED=1: the dreams (Yume scoring, /dreams/*) are not ported to "
-            "dreamlab_tpu_torch yet (ROADMAP Queue 1, item 15); unset it")
     if cfg.mesh_spec:
         raise NotPortedError(
             f"DREAMLAB_MESH={cfg.mesh_spec!r}: serving over a multi-device mesh is not "
-            "ported to dreamlab_tpu_torch yet (ROADMAP Queue 1, item 16); unset it")
+            "ported to dreamlab_tpu_torch yet (ROADMAP Queue 1, item 18); unset it")
 
 
 def create_app(
@@ -785,6 +797,10 @@ def create_app(
         from .comfy_routes import register_comfy_routes
 
         register_comfy_routes(app)
+    if cfg.yume_enabled:
+        from ..yume.dream_endpoints import register_dream_routes
+
+        register_dream_routes(app)
 
     if cfg.ui_dist and os.path.isdir(cfg.ui_dist):
         index_path = os.path.join(cfg.ui_dist, "index.html")

@@ -193,6 +193,7 @@ HTTPBadRequest = _http_error(400, "HTTPBadRequest")
 HTTPForbidden = _http_error(403, "HTTPForbidden")
 HTTPNotFound = _http_error(404, "HTTPNotFound")
 HTTPMethodNotAllowed = _http_error(405, "HTTPMethodNotAllowed")
+HTTPConflict = _http_error(409, "HTTPConflict")
 HTTPRequestEntityTooLarge = _http_error(413, "HTTPRequestEntityTooLarge")
 HTTPBadGateway = _http_error(502, "HTTPBadGateway")
 HTTPServiceUnavailable = _http_error(503, "HTTPServiceUnavailable")

@@ -7,8 +7,10 @@ and their diffusers directories (``random_controlnet``,
 ``write_controlnet_dir``), random SDXL refiner bundles
 (``random_refiner_bundle``), seeded ESPCN weights and their ``.onnx`` file
 (``random_espcn``, ``write_espcn_onnx``: a protobuf encoder of the port's
-own, so the chip run needs no ONNX package), and ``modes.yaml`` files
-(``write_modes_yaml``, without PyYAML).
+own, so the chip run needs no ONNX package), ``modes.yaml`` files
+(``write_modes_yaml``, without PyYAML), and random CLIP models written as HF
+``CLIPModel`` directories (``random_clip``, ``write_clip_dir``: Yume's
+native scorer).
 
 Speed does not depend on weight values, so the chip smoke run drives the real
 architectures with seeded random weights when no checkpoint is at hand. The
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from . import lora
-from .models import clip_text, configs, controlnet, superres, unet, vae
+from .models import clip_text, clip_vision, configs, controlnet, superres, unet, vae
 from .pipeline import PipelineBundle
 from .scheduler.lcm import LCMConfig
 from .utils.safetensors import save_file
@@ -723,3 +725,90 @@ def write_modes_yaml(path: str, modes: Dict[str, dict], *, default_mode: Optiona
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(_yaml_lines({**top, "modes": modes}, 0)) + "\n")
     return str(path)
+
+
+# ---------------------------------------------------------------------------
+# CLIP models (Yume's scorer) as HF CLIPModel directories
+# ---------------------------------------------------------------------------
+
+
+def clip_tokenizer(vocab_size: Optional[int] = None) -> CLIPTokenizer:
+    """The test tokenizer over ``WORDS``; with ``vocab_size``, its vocabulary
+    filled with unused tokens up to that size, BOS and EOS last, so that EOS
+    is the vocabulary's last id as in CLIP's (the text tower pools there)."""
+    tok = make_test_tokenizer(WORDS)
+    if vocab_size is None:
+        return tok
+    specials = ("<|startoftext|>", "<|endoftext|>")
+    vocab = {t: i for t, i in tok.encoder.items() if t not in specials}
+    if vocab_size < len(vocab) + 2:
+        raise ValueError(f"vocab_size {vocab_size} < the test vocabulary's {len(vocab) + 2}")
+    for i in range(vocab_size - 2 - len(vocab)):
+        vocab[f"<|unused{i}|>"] = len(vocab)
+    for t in specials:
+        vocab[t] = len(vocab)
+    merges = [" ".join(m) for m in sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)]
+    return CLIPTokenizer(vocab, merges)
+
+
+def random_clip(text_cfg: configs.CLIPTextConfig, vision_cfg: configs.CLIPVisionConfig, *,
+                seed: int = 0, device="cpu"):
+    """(text params, vision params) of a CLIP model, random fp32 weights drawn
+    on ``device`` from a generator seeded with ``seed``: the text tower first."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        return clip_text.init_params(text_cfg, gen), clip_vision.init_params(vision_cfg, gen)
+
+
+def export_clip_vision(params, pre_ln: str = "pre_layrnorm") -> Dict[str, torch.Tensor]:
+    """The vision tower's HF state dict; ``pre_ln`` spells the pre-LayerNorm's
+    key (HF's own ``pre_layrnorm``, or ``pre_layernorm``)."""
+    out = _Out()
+    pre = "vision_model."
+    out[pre + "embeddings.patch_embedding.weight"] = params["patch_embedding"]["w"].contiguous()
+    out[pre + "embeddings.class_embedding"] = params["class_embedding"]
+    out[pre + "embeddings.position_embedding.weight"] = params["position_embedding"]["w"]
+    out.norm(pre + pre_ln, params["pre_ln"])
+    for i, layer in enumerate(params["layers"]):
+        b = f"{pre}encoder.layers.{i}"
+        out.norm(b + ".layer_norm1", layer["ln1"])
+        for name, proj in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                           ("out", "out_proj")):
+            out.linear(f"{b}.self_attn.{proj}", layer["attn"][name])
+        out.norm(b + ".layer_norm2", layer["ln2"])
+        out.linear(b + ".mlp.fc1", layer["fc1"])
+        out.linear(b + ".mlp.fc2", layer["fc2"])
+    out.norm(pre + "post_layernorm", params["post_ln"])
+    out.linear("visual_projection", params["visual_projection"])
+    return out
+
+
+def write_clip_dir(path: str, text_params, text_cfg: configs.CLIPTextConfig, vision_params,
+                   vision_cfg: configs.CLIPVisionConfig, tokenizer: CLIPTokenizer, *,
+                   tokenizer_subdir: bool = False, pre_ln: str = "pre_layrnorm") -> str:
+    """Save a CLIP model as an HF ``CLIPModel`` directory: ``config.json``
+    (``text_config``, ``vision_config``, ``projection_dim``), both towers and
+    ``logit_scale`` in ``model.safetensors`` in the leaves' dtypes, and the
+    tokenizer's files beside them or in ``tokenizer/``; returns ``path``."""
+    if text_cfg.projection_dim != vision_cfg.projection_dim:
+        raise ValueError("the towers' projection widths differ")
+    os.makedirs(path, exist_ok=True)
+    text_json = text_config_json(text_cfg)
+    text_json.pop("architectures")
+    vision_json = {"image_size": vision_cfg.image_size, "patch_size": vision_cfg.patch_size,
+                   "hidden_size": vision_cfg.hidden_size,
+                   "num_hidden_layers": vision_cfg.num_layers,
+                   "num_attention_heads": vision_cfg.num_heads,
+                   "intermediate_size": vision_cfg.intermediate_size,
+                   "hidden_act": vision_cfg.hidden_act,
+                   "layer_norm_eps": vision_cfg.layer_norm_eps}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["CLIPModel"], "projection_dim": vision_cfg.projection_dim,
+                   "text_config": text_json, "vision_config": vision_json}, f, indent=1)
+    tensors = {**export_clip_text(text_params), **export_clip_vision(vision_params, pre_ln),
+               "logit_scale": torch.tensor(2.6592, dtype=torch.float32)}
+    save_file({k: v.detach().cpu().contiguous() for k, v in tensors.items()},
+              os.path.join(path, "model.safetensors"), {"format": "pt"})
+    _write_tokenizer(tokenizer, os.path.join(path, "tokenizer") if tokenizer_subdir else path)
+    return path
+

@@ -13,6 +13,8 @@ Safetensors shapes come from the file's header through the port's own reader
 ``pickletools.genops``, which never unpickles (no code runs, no tensor data
 is read). SD1.5/SD2.1-class and SDXL-class checkpoints are served by the CUDA
 worker, with the arch tag the loader and the pipeline read.
+
+CLI: ``python -m dreamlab_tpu_torch.utils.model_detector PATH... [--scan DIR]``.
 """
 
 from __future__ import annotations
@@ -311,3 +313,25 @@ def scan_directory(root: str) -> list:
             continue
     return results
 
+
+
+def main(argv=None) -> int:
+    """CLI: ``python -m dreamlab_tpu_torch.utils.model_detector PATH... [--scan DIR]``
+    prints each ``ModelInfo`` as JSON."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="classify model checkpoints")
+    p.add_argument("paths", nargs="*")
+    p.add_argument("--scan", action="append", default=[],
+                   help="scan a directory of checkpoints")
+    args = p.parse_args(argv)
+    infos = [detect_model(path) for path in args.paths]
+    for root in args.scan:
+        infos.extend(scan_directory(root))
+    for info in infos:
+        print(json.dumps(dataclasses.asdict(info), indent=2, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,7 +1,8 @@
 """Import hygiene: the port imports nothing of JAX and nothing of ``dreamlab_tpu``,
 reads safetensors files without the ``safetensors`` package, YAML without
 PyYAML, serves HTTP without aiohttp, pydantic, requests, multidict and yarl,
-and imports PIL and websocket-client only inside a call that needs them."""
+imports PIL and websocket-client only inside a call that needs them, and
+transformers only where Yume's scorer ladder reaches its second rung."""
 
 import os
 import pkgutil
@@ -13,9 +14,11 @@ import dreamlab_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # PIL is imported only by a job that needs its codecs, websocket-client only
-# by a ComfyUI run that opens its socket
+# by a ComfyUI run that opens its socket, transformers only by Yume's scorer
+# ladder when no local CLIP directory loads
 FORBIDDEN = ("jax", "jaxlib", "dreamlab_tpu", "safetensors", "yaml", "PIL", "aiohttp",
-             "pydantic", "pydantic_core", "requests", "multidict", "yarl", "websocket")
+             "pydantic", "pydantic_core", "requests", "multidict", "yarl", "websocket",
+             "transformers")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -34,7 +37,10 @@ def test_importing_every_module_loads_no_jax():
                 "serving.startup_hooks", "persistence", "persistence.storage_provider",
                 "persistence.filesystem_provider", "persistence.redis_provider", "utils.resp",
                 "utils.verify_cuda", "invokers.jobs", "invokers.profiles",
-                "invokers.workflow_store", "invokers.comfy_client", "cli"):
+                "invokers.workflow_store", "invokers.comfy_client", "cli",
+                "models.clip_vision", "yume", "yume.scoring", "yume.strategies",
+                "yume.dream_worker", "yume.dream_init", "yume.dream_endpoints",
+                "utils.assets", "utils.custom_detector_examples", "utils.model_detector"):
         assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -73,9 +79,33 @@ def test_serving_a_request_loads_none_of_them():
     assert out.returncode == 0, out.stderr
 
 
+def test_serving_the_dreams_loads_none_of_them():
+    """``create_app`` with ``YUME_ENABLED`` and a ``/dreams/status`` request
+    without a dream worker (503), in a fresh process: the dream routes load
+    none of the forbidden packages, transformers included."""
+    code = (
+        "import http.client, sys\n"
+        "from dreamlab_tpu_torch.serving.app import ServerConfig, create_app\n"
+        "from dreamlab_tpu_torch.serving.http import ServerThread\n"
+        "app = create_app(ServerConfig(yume_enabled=True), skip_startup=True)\n"
+        "srv = ServerThread(app).start()\n"
+        "c = http.client.HTTPConnection('127.0.0.1', srv.port, timeout=60)\n"
+        "c.request('GET', '/dreams/status'); r = c.getresponse()\n"
+        "assert r.status == 503 and b'yume not initialized' in r.read()\n"
+        "srv.stop()\n"
+        "assert 'dreamlab_tpu_torch.yume.dream_endpoints' in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_name_no_jax_import():
     pattern = re.compile(r"^(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml|PIL|aiohttp|"
-                         r"pydantic|requests|multidict|yarl|websocket)(\.|\s|$)"
+                         r"pydantic|requests|multidict|yarl|websocket|transformers)(\.|\s|$)"
                          r"|^\s*(import|from)\s+(jax|dreamlab_tpu|safetensors|yaml|aiohttp|"
                          r"pydantic|requests|multidict|yarl)(\.|\s|$)",
                          re.M)

@@ -16,8 +16,9 @@ keep-alive, pipelined requests, a client that disconnects while its job is
 queued (the job never runs).
 
 With ``tests/test_torch_port_server_modes.py`` it covers
-``tests/test_server.py`` (but the dreams, ROADMAP item 15) and the server
-part of ``tests/test_server_controlnet.py``.
+``tests/test_server.py`` (the dreams' ``/dreams/*`` too, with scripted
+scores and seeded strategies so both sessions run the same iterations) and
+the server part of ``tests/test_server_controlnet.py``.
 """
 
 import asyncio
@@ -879,3 +880,176 @@ def test_error_middleware_maps_errors_as_the_jax_servers(exc, status):
                                         tapp._json_error(tapp.web.HTTPNotFound, "gone")))
     finally:
         loop.close()
+
+
+# ---------------------------------------------------------------------------
+# /dreams/* (tests/test_server.py's dream cases), both servers
+# ---------------------------------------------------------------------------
+
+DREAM_ROUTES = [("POST", "/dreams/start", {"prompt": "x"}), ("POST", "/dreams/stop", None),
+                ("GET", "/dreams/status", None), ("GET", "/dreams/top", None),
+                ("GET", "/dreams/recent", None), ("GET", "/dreams/stats", None),
+                ("GET", "/dreams/image/0123456789abcdef", None)]
+# the clock's and the session id's (int(time.time())) fields
+DREAM_VOLATILE = {"created_at", "started_at", "dreams_per_sec", "session_id"}
+# candidate scores, handed out in call order by ScriptedScorer
+DREAM_SCORES = [0.31, 0.87, 0.12, 0.64, 0.93, 0.05, 0.58, 0.77]
+
+
+def _dream_json(obj):
+    if isinstance(obj, dict):
+        return {k: _dream_json(v) for k, v in obj.items() if k not in DREAM_VOLATILE}
+    if isinstance(obj, list):
+        return [_dream_json(v) for v in obj]
+    return obj
+
+
+def assert_same_dream(j: Reply, p: Reply):
+    assert (j.status, _contract(j.headers)) == (p.status, _contract(p.headers))
+    if p.headers.get("content-type", "").startswith("application/json"):
+        assert _dream_json(j.json()) == _dream_json(p.json())
+    else:
+        assert_pixels_close(j.body, p.body)
+
+
+class ScriptedScorer:
+    """Scores from DREAM_SCORES in call order; ends the session after
+    ``batches`` batches (the loop checks its stop flag before each one), so
+    both servers' sessions run the same iterations whatever the CPU's speed."""
+
+    def __init__(self, batches):
+        self.batches, self.calls, self.dream = batches, 0, None
+
+    def score_batch(self, images, prompt):
+        start = self.calls * len(images)
+        self.calls += 1
+        if self.calls >= self.batches:
+            self.dream._stop.set()  # a flag the loop polls: no waiter to wake
+        return [DREAM_SCORES[(start + i) % len(DREAM_SCORES)] for i in range(len(images))]
+
+
+@pytest.fixture(scope="module")
+def dreams(tiny, tmp_path_factory):
+    _, jpipe, tpipe = tiny
+    cfg = dict(default_size="32x32", default_steps=2, request_timeout=60, yume_enabled=True)
+    pair = make_pair(str(tmp_path_factory.mktemp("dreams")), jpipe, tpipe, sr=False,
+                     storage=False, config=cfg)
+    yield pair
+    close_pair(pair)
+
+
+@pytest.mark.parametrize("method,path,body", DREAM_ROUTES, ids=[p for _, p, _ in DREAM_ROUTES])
+def test_dreams_without_a_dream_worker_are_503(dreams, method, path, body):
+    from dreamlab_tpu.yume import dream_worker as jdw
+    from dreamlab_tpu_torch.yume import dream_worker as dw
+
+    jdw.set_dream_worker(None)
+    dw.set_dream_worker(None)
+    j, p = dreams.both(method, path, *(as_json(body) if body else ()))
+    assert_same(j, p)
+    assert p.status == 503 and p.json() == {"detail": "yume not initialized"}
+
+
+def test_dreams_lifecycle_as_the_jax_servers(dreams, tiny, monkeypatch):
+    """Start (200), a second start (409), status while the first batch is
+    held, then two scripted batches, a render, finalize, stop, top, recent,
+    stats, every rendered image (pixels; the port's = run_job's bytes) and
+    an image never rendered (404): the same codes and bodies, but the
+    clock's fields."""
+    import threading
+
+    import numpy as np
+
+    from dreamlab_tpu.engine.tpu_worker import TPUPipelineWorker
+    from dreamlab_tpu.yume import dream_worker as jdw
+    from dreamlab_tpu.yume import strategies as jstrat
+    from dreamlab_tpu_torch.engine.base import GenSpec
+    from dreamlab_tpu_torch.yume import dream_worker as dw
+    from dreamlab_tpu_torch.yume import strategies as tstrat
+
+    _, jpipe, tpipe = tiny
+    monkeypatch.setenv("YUME_FINALIZE_RENDERS", "2")
+    gate = threading.Event()
+    made = []
+    for mod, strat, worker in ((jdw, jstrat, TPUPipelineWorker(jpipe, 0)),
+                               (dw, tstrat, CudaPipelineWorker(tpipe, 0))):
+        monkeypatch.setattr(mod, "get_strategy", lambda name, strat=strat: strat.get_strategy(
+            name, rng=np.random.RandomState(0)))
+        scorer = ScriptedScorer(batches=2)
+        dream = mod.DreamWorker(worker, scorer=scorer, redis=None, render_interval=2,
+                                score_threshold=0.0, candidate_batch=2, candidate_size="32x32",
+                                candidate_steps=2, render_size="32x32", render_steps=2)
+        scorer.dream = dream
+        generate = dream._generate_candidates
+        dream._generate_candidates = lambda seeds, prompt, g=generate: (
+            gate.wait(TIMEOUT), g(seeds, prompt))[1]
+        mod.set_dream_worker(dream)
+        made.append(dream)
+    jdream, tdream = made
+    try:
+        start = {"prompt": "tiny dream", "strategy": "random", "temperature": 1.0}
+        j, p = dreams.both("POST", "/dreams/start", *as_json(start))
+        assert_same_dream(j, p)
+        assert p.status == 200 and p.json()["prompts"] == tdream.prompts
+        assert p.json()["session_id"].startswith("dream:")
+        j, p = dreams.both("POST", "/dreams/start", *as_json({"prompt": "x"}))
+        assert_same(j, p)
+        assert p.status == 409 and p.json() == {"detail": "a dream session is already running"}
+        j, p = dreams.both("GET", "/dreams/status")
+        assert_same_dream(j, p)
+        assert p.json()["running"] and p.json()["stats"]["generated"] == 0
+        gate.set()
+        t0 = time.monotonic()
+        while True:  # each request to the JAX server drives its loop
+            j, p = dreams.both("GET", "/dreams/status")
+            if not (j.json()["running"] or p.json()["running"]):
+                break
+            assert time.monotonic() - t0 < TIMEOUT, (j.json(), p.json())
+            time.sleep(0.01)
+        for method, path in (("POST", "/dreams/stop"), ("GET", "/dreams/status"),
+                             ("GET", "/dreams/top?n=5"), ("GET", "/dreams/top"),
+                             ("GET", "/dreams/recent?n=50"), ("GET", "/dreams/stats")):
+            j, p = dreams.both(method, path)
+            assert_same_dream(j, p)
+        stats = p.json()
+        assert (stats["generated"], stats["scored"], stats["kept"], stats["rendered"]) == (4, 4, 4, 3)
+        rendered = [c for c in tdream.top if c.rendered_png is not None]
+        assert len(rendered) == 3
+        for cand in rendered:
+            j, p = dreams.both("GET", f"/dreams/image/{cand.candidate_id}")
+            assert_same_dream(j, p)
+            assert p.headers["content-type"] == "image/png"
+            assert p.body == CudaPipelineWorker(tpipe, 0).run_job(GenSpec(
+                prompt=cand.prompt, size="32x32", num_inference_steps=2, seed=cand.seed))[0]
+        j, p = dreams.both("GET", "/dreams/image/0123456789abcdef")
+        assert_same(j, p)
+        assert p.status == 404 and p.json() == {"detail": "no rendered image"}
+    finally:
+        gate.set()
+        jdw.set_dream_worker(None)
+        dw.set_dream_worker(None)
+
+
+@pytest.mark.parametrize("body", [{}, {"prompt": ""}, {"strategy": "random"}])
+def test_dreams_start_without_a_prompt_is_400(dreams, tiny, body):
+    from dreamlab_tpu.engine.tpu_worker import TPUPipelineWorker
+    from dreamlab_tpu.yume import dream_worker as jdw
+    from dreamlab_tpu_torch.yume import dream_worker as dw
+
+    _, jpipe, tpipe = tiny
+    jdw.set_dream_worker(jdw.DreamWorker(TPUPipelineWorker(jpipe, 0)))
+    dw.set_dream_worker(dw.DreamWorker(CudaPipelineWorker(tpipe, 0)))
+    try:
+        j, p = dreams.both("POST", "/dreams/start", *as_json(body))
+        assert_same(j, p)
+        assert p.status == 400 and p.json() == {"detail": "field 'prompt' required"}
+        assert not dw.get_dream_worker().get_status()["running"]
+    finally:
+        jdw.set_dream_worker(None)
+        dw.set_dream_worker(None)
+
+
+def test_dreams_routes_are_served_only_with_yume_enabled(srv):
+    j, p = srv.both("GET", "/dreams/status")
+    assert_same(j, p)
+    assert p.status == 404

@@ -3,13 +3,15 @@
 comparisons): ``tests/test_server_controlnet.py``'s REST cases on both
 servers with the same ControlNets attached, the cache routes with
 ``DREAMLAB_MODE_CACHE=2``, SDXL over REST, the legacy service, and the
-port's startup: its refusals, the entry point without a GPU, and the mode
-system built from a checkpoint directory on the CPU."""
+port's startup: its refusal, the entry point without a GPU, and the mode
+system and the legacy service built from a checkpoint directory on the CPU,
+with the dream worker bound to them."""
 
 import base64
 import os
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -222,8 +224,7 @@ def test_legacy_service_multi_worker_and_pipelined(tiny):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("setting,item", [({"yume_enabled": True}, "item 15"),
-                                          ({"mesh_spec": "data=4"}, "item 16")])
+@pytest.mark.parametrize("setting,item", [({"mesh_spec": "data=4"}, "item 18")])
 def test_unported_settings_refuse_to_start(setting, item):
     with pytest.raises(tapp.NotPortedError, match=item):
         tapp.create_app(tapp.ServerConfig(**setting), skip_startup=True)
@@ -244,10 +245,10 @@ def test_the_entry_point_without_a_gpu_exits_with_the_reason(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no usable CUDA device" in out.stderr and "FAIL: no CUDA device" in out.stdout
-    env["YUME_ENABLED"] = "1"
+    env["YUME_ENABLED"] = "1"  # served now: still no start without the card
     out = subprocess.run([sys.executable, "-m", "dreamlab_tpu_torch.serving.run"], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and "item 15" in out.stderr
+    assert out.returncode != 0 and "no usable CUDA device" in out.stderr
 
 
 def test_startup_builds_the_mode_system_on_the_cpu(tmp_path, monkeypatch):
@@ -271,3 +272,62 @@ def test_startup_builds_the_mode_system_on_the_cpu(tmp_path, monkeypatch):
     finally:
         server.stop()
     assert state.pool.get_status()["shutdown"]
+
+
+@pytest.mark.parametrize("backend", ["mode", "legacy"])
+def test_startup_binds_the_dream_worker_on_the_cpu(tmp_path, monkeypatch, backend):
+    """``YUME_ENABLED=1``: the startup binds a dream worker to the pool's
+    worker (or the legacy service's first), its native CLIP scorer loaded on
+    the server's device from ``YUME_CLIP_MODEL``, Redis refused -> in
+    memory; ``/dreams/*`` serve a session; cleanup stops it."""
+    import socket
+
+    from dreamlab_tpu_torch.yume import dream_worker, scoring
+
+    ckpt = make_tiny_checkpoint(tmp_path / "ckpt")
+    tok = testing.clip_tokenizer()
+    text_cfg = tcfg.CLIPTextConfig(vocab_size=len(tok.encoder), hidden_size=32, num_layers=2,
+                                   num_heads=2, intermediate_size=64, projection_dim=16)
+    text_params, vision_params = testing.random_clip(text_cfg, tcfg.TINY_VISION)
+    clip_dir = testing.write_clip_dir(str(tmp_path / "clip"), text_params, text_cfg,
+                                      vision_params, tcfg.TINY_VISION, tok)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    monkeypatch.setenv("REDIS_PORT", str(sock.getsockname()[1]))
+    sock.close()
+    monkeypatch.setenv("YUME_CLIP_MODEL", clip_dir)
+    monkeypatch.setenv("STORAGE_PROVIDER", "MEMORY")
+    monkeypatch.setenv("YUME_FINALIZE_RENDERS", "1")
+    if backend == "mode":
+        modes = testing.write_modes_yaml(str(tmp_path / "modes.yaml"), {"m": {
+            "model": ckpt, "defaults": {"size": "32x32", "steps": 2}}}, default_mode="m")
+        cfg = tapp.ServerConfig(modes_config=modes, default_size="32x32", default_steps=2,
+                                yume_enabled=True)
+    else:
+        cfg = tapp.ServerConfig(model_path=ckpt, default_size="32x32", default_steps=2,
+                                yume_enabled=True, warmup=False)
+    app = tapp.create_app(cfg, device="cpu")
+    server = ServerThread(app).start()
+    try:
+        state = app[tapp.STATE_KEY]
+        dream = state.dream_worker
+        assert dream_worker.get_dream_worker() is dream
+        bound = state.pool.worker if backend == "mode" else state.legacy.workers[0]
+        assert dream.worker is bound and dream.redis is None
+        assert type(dream.scorer.model) is scoring.NativeCLIP
+        assert dream.scorer.model.device.type == "cpu"
+        dream.candidate_size = dream.render_size = "32x32"
+        dream.render_steps, dream.score_threshold = 2, 0.0  # keep every candidate
+        reply = fetch(server.port, "POST", "/dreams/start", *as_json({"prompt": "a cat"}))
+        assert reply.status == 200 and reply.json()["prompts"][0] == "a cat"
+        t0 = time.monotonic()
+        while dream.stats["scored"] < 4:
+            assert time.monotonic() - t0 < TIMEOUT
+            time.sleep(0.01)
+        assert fetch(server.port, "GET", "/dreams/status").json()["running"]
+    finally:
+        server.stop()
+        dream_worker.set_dream_worker(None)
+    # the cleanup stopped the session and ran its finalize
+    assert not dream.get_status()["running"] and dream.stats["rendered"] >= 1
+
