@@ -2,7 +2,10 @@
 """Chip smoke run of the PyTorch port (``dreamlab_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
-device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
+device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails.
+Each phase's end goes to stderr with the seconds since the start; a run
+still going after ``WATCHDOG_S`` writes every thread's stack to stderr,
+kills its child processes and exits 1. Phases:
 
 1. prints the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
 2. builds the CUDA kernels from ``dreamlab_tpu_torch/csrc`` (nvcc, sm_90a),
@@ -152,6 +155,26 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    eager, the carry an fp32 card tensor, a profiled replay, the peak memory
    with both pipelines resident, capture seconds and bytes per bucket; the
    base's (0, 3) then (3, 4) = its 4-step run, byte for byte;
+8c. mesh phase (``dreamlab_tpu_torch/parallel/``): two ranks on cuda:0
+   over gloo, started by ``parallel.multihost.run_ranks`` (one card, and
+   NCCL refuses two ranks on one device: correctness and overhead, not
+   scaling), SD1.5 at full width from the same seeded weights on both.
+   Data axis (``data=2``; counts reset once rank 0's single-process
+   references are taken): rank 0 serves ``create_app`` and the pool over a
+   ``RouterPipeline``, rank 1 replays; ``/generate`` at batch 1 = the single
+   process's ``run_job``, ``run_jobs`` of 2 (a row per rank) = the solo
+   PNGs, ``/generate/stream`` 4 progress events in order, img2img, a style
+   through ``apply_lora`` and its restore, a failed merge restoring both
+   ranks, segments (0, 3) + (3, 4) = the full run, both ranks' buckets
+   captured graphs, p50 of 10 router ``/generate`` beside 10 ``run_job``.
+   Model axis (``model=2``, eager: a gloo group cannot be captured): per
+   rank a census (40 K1 at ``[1,4096,4,40]`` and ``[1,1024,4,80]``, 209
+   K2+K3), 192 all-reduces a request and their ms, p50 of 5 beside 5
+   single-process eager ones; the same split in fp32 held to the single
+   process's eager route within 1 level and ``MESH_TP_LATENT_TOL``, the bf16
+   split's distance reported (levels, pixels moved, latents) beside what the
+   split does to one bf16 GEMM; then K1 at the TP shapes checked and timed
+   here;
 9. probes phase: holds the probes' kernels (K4 ``flash_attention_4d``, K5
    ``kernel_call`` at lanes 40 and 128, K6 ``flash_attention_packed3``) in
    fp32 against their plain versions at the probes' full shapes, then runs
@@ -169,7 +192,9 @@ device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails:
    SDXL path with a ``_sdxl`` name, K2+K3 at the encoder's shapes (``_encoder``,
    ``_encoder_sdxl``), K1 at 1344x768, K1 and K2+K3 on the ControlNet path
    (``_controlnet``) and at the refiner segment's shapes (``_refiner``),
-   then the probes' kernels), and last
+   on the mesh (``_mesh_dp``: the census's times; ``_mesh_tp``: K1 at the
+   split heads' shapes, K2+K3 the census's times; launches summed over the
+   two ranks), then the probes' kernels), and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -178,12 +203,15 @@ from __future__ import annotations
 import base64
 import collections
 import dataclasses
+import faulthandler
+import glob
 import http.client
 import json
 import math
 import os
 import platform
 import re
+import signal
 import socket
 import statistics
 import struct
@@ -277,6 +305,10 @@ SWITCH_AT = 0.8
 ENSEMBLE_PER_REQUEST = {"flash": 3 * 70 + 44, "gn": 3 * 35 + 45 + 29}
 ENSEMBLE_SAMPLES = 3
 FAILURES = []
+# the script must end within 1200 s: a run still going at this many seconds
+# writes every thread's stack to stderr, kills its child processes and exits 1
+WATCHDOG_S = 1080
+T_START = time.perf_counter()
 
 
 def log(obj) -> None:
@@ -289,7 +321,28 @@ def expect(ok: bool, what: str) -> None:
         log(f"FAIL: {what}")
 
 
+def watchdog() -> None:
+    """A run past ``WATCHDOG_S``: where every thread is, on stderr; then no
+    child process (a mesh rank) outlives the script."""
+    print(f"chip_smoke: still running after {WATCHDOG_S} s; every thread's stack:",
+          file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    me = str(os.getpid())
+    for stat in glob.glob("/proc/[0-9]*/stat"):
+        try:
+            with open(stat) as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]
+            if ppid == me:
+                os.kill(int(stat.split("/")[2]), signal.SIGKILL)
+        except (OSError, IndexError, ValueError):
+            pass
+    os._exit(1)
+
+
 def end_phase(name: str) -> None:
+    # progress on stderr, so the end of stderr says how far a run came
+    print(f"chip_smoke: {name} ended at {time.perf_counter() - T_START:.1f} s", file=sys.stderr,
+          flush=True)
     if FAILURES:
         log(f"phase {name} failed: {FAILURES}")
         sys.exit(1)
@@ -1950,7 +2003,7 @@ def img2img_path(worker, per_request, txt_seen, errs) -> tuple:
            f"img2img census adds {dict(encoder)}, expected {n_enc} GroupNorm calls")
     log({"img2img_census_encoder": [[list(k[1]), k[2], n] for k, n in sorted(encoder.items())]})
     t0 = time.perf_counter()
-    rows = time_kernels(encoder, torch.bfloat16, errs)
+    rows = time_kernels(encoder, torch.bfloat16, errs, parts=False)
     timing_s = time.perf_counter() - t0
     end_phase("img2img census")
 
@@ -2097,7 +2150,7 @@ def controlnet_path(worker, bundle, net_b, hint, per_request) -> tuple:
            and cn_request["gn"] == CN_PER_REQUEST["gn"],
            f"ControlNet census {cn_request}, expected {CN_PER_REQUEST}")
     t0 = time.perf_counter()
-    rows = time_kernels(seen, torch.bfloat16, errs)
+    rows = time_kernels(seen, torch.bfloat16, errs, parts=False)
     timing_s = time.perf_counter() - t0
     end_phase("controlnet census")
 
@@ -2375,7 +2428,7 @@ def sdxl_img2img(worker, txt_seen) -> tuple:
     expect(sum(c for k, c in encoder.items() if k[0] == "gn") == n_enc
            and not any(k[0] == "flash" for k in encoder),
            f"SDXL img2img census adds {dict(encoder)}, expected {n_enc} GroupNorm calls")
-    rows = time_kernels(encoder, torch.bfloat16, errs)
+    rows = time_kernels(encoder, torch.bfloat16, errs, parts=False)
     end_phase("sdxl img2img census")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2504,7 +2557,7 @@ def sdxl_phase(errs) -> tuple:
     end_phase("sdxl census")
 
     t0 = time.perf_counter()
-    rows = time_kernels(seen, torch.bfloat16, errs)
+    rows = time_kernels(seen, torch.bfloat16, errs, parts=False)
     extremes = check_sdxl_extremes(errs)
     log({"sdxl_timing_s": time.perf_counter() - t0, "per_request_ms": rows, **extremes})
     end_phase("sdxl kernel checks")
@@ -2658,7 +2711,7 @@ def ensemble_phase() -> tuple:
            and ens_request["gn"] == ENSEMBLE_PER_REQUEST["gn"],
            f"ensemble census {ens_request}, expected {ENSEMBLE_PER_REQUEST}")
     t1 = time.perf_counter()
-    rows = time_kernels(ref_seen, torch.bfloat16, errs)
+    rows = time_kernels(ref_seen, torch.bfloat16, errs, parts=False)
     timing_s = time.perf_counter() - t1
     end_phase("ensemble census")
 
@@ -2733,6 +2786,313 @@ def delete_pipeline(worker) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return reserved - torch.cuda.memory_reserved()
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the mesh (parallel/): two ranks on the one card, over gloo
+# ---------------------------------------------------------------------------
+
+MESH_WHY = ("the mesh phase runs two ranks on cuda:0 over gloo: the machine has one card, "
+            "and NCCL refuses two ranks on one device; its numbers are correctness and "
+            "overhead, not scaling")
+MESH_TIMEOUT_S = 180  # the two ranks' whole run, start to exit (about 25 s on an H100)
+MESH_DP_SAMPLES = 10  # router /generate requests timed, and as many single-process run_job
+MESH_TP_SAMPLES = 5  # tensor-parallel requests timed, and as many single-process eager ones
+# tensor parallelism sums the out-projections' fp32 partial products before
+# one rounding, as one device's GEMM accumulates in fp32 and rounds once, in
+# another order, at other GEMM widths: in fp32 the split is held to the
+# single process within 1 level and this latent bound (set at 0.1 before any
+# run); the bf16 split is reported beside it (on an H100 it moved 31 % of
+# the pixels, by up to 3 levels: PERF.md, section 6)
+MESH_TP_LATENT_TOL = 0.1
+# 3 all-reduces per transformer block (attn1, attn2, ff_out) x 16 blocks x 4 steps
+MESH_TP_ALL_REDUCES = 3 * 16 * STEPS
+MESH_PROMPT = "a valley at dawn"
+
+
+def _mesh_spec(seed: int, **kw) -> GenSpec:
+    return GenSpec(MESH_PROMPT, size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS, seed=seed,
+                   **kw)
+
+
+class _CountedGroup:
+    """A ``ModelGroup`` whose all-reduces are counted and timed (host clock
+    between device syncs: the gloo path copies through the host anyway)."""
+
+    def __init__(self, group):
+        self.group, self.size, self.rank = group, group.size, group.rank
+        self.on_device, self.calls, self.ms = group.on_device, 0, 0.0
+
+    def all_reduce(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.group.all_reduce(t)
+        torch.cuda.synchronize()
+        self.ms += 1e3 * (time.perf_counter() - t0)
+        self.calls += 1
+        return t
+
+
+def _mesh_dp_primary(rp, solo, style: str, root: str) -> dict:
+    """Rank 0's data-axis checks: the server (create_app and the pool) over
+    the router pipeline, every result held against the single-process
+    pipeline ``solo`` on the same card."""
+    from dreamlab_tpu_torch.engine.model_registry import ModelRegistry
+
+    styles = {"s": lora.StyleDef("s", style)}
+    # the single process's results first, so the launch counts from here on
+    # are the router path's (a replay counts nothing; the p50's run_job replays)
+    sw = CudaPipelineWorker(solo, styles=styles)
+    rows = [_mesh_spec(s) for s in (41, 42)]  # one row per data rank
+    image = test_image(SIZE, SIZE, 90)
+    want = {"base": sw.run_job(_mesh_spec(5))[0], "rows": [sw.run_job(s)[0] for s in rows],
+            "img2img": sw.run_img2img(_mesh_spec(920), image, strength=0.5),
+            "styled": sw.run_job(_mesh_spec(5, style="s", style_level=3))[0]}
+    reset_counts()
+    modes = testing.write_modes_yaml(os.path.join(root, "modes_mesh.yaml"), {
+        "a": {"model": "a", "defaults": {"size": f"{SIZE}x{SIZE}", "steps": STEPS}}},
+        default_mode="a", model_root=root)
+    pool = WorkerPool(queue_max=8, worker_factory=lambda i, p: CudaPipelineWorker(
+        rp, i, styles=styles), mode_config=ModeConfigManager(modes),
+        registry=ModelRegistry(device=torch.device("cuda")), max_batch=1)
+    app = server_app.create_app(server_app.ServerConfig(
+        default_size=f"{SIZE}x{SIZE}", default_steps=STEPS), pool=pool, skip_startup=True,
+        device="cuda")
+    srv = ServerThread(app).start()
+    w = pool.worker
+    gen = lambda seed: {"prompt": MESH_PROMPT, "seed": seed, "size": f"{SIZE}x{SIZE}",
+                        "num_inference_steps": STEPS}
+    checks, out = {}, {}
+    try:
+        status, _, png = http_call(srv.port, "POST", "/generate", gen(5))
+        check_png(png)
+        base = want["base"]
+        checks["generate_batch1_eq_run_job"] = status == 200 and png == base
+        checks["run_jobs_2_eq_solo"] = [p for p, _ in w.run_jobs(rows)] == want["rows"]
+        status, _, body = http_call(srv.port, "POST", "/generate/stream", gen(5))
+        events = [(b.split("\n")[0][7:], json.loads(b.split("\n")[1][6:]))
+                  for b in body.decode().strip().split("\n\n")]
+        checks["stream_progress_in_order"] = [d["step"] for e, d in events
+                                              if e == "progress"] == list(range(STEPS))
+        checks["stream_result_eq_generate"] = [base64.b64decode(d["image_b64"]) for e, d
+                                               in events if e == "result"] == [png]
+        checks["img2img_eq_one_process"] = (w.run_img2img(_mesh_spec(920), image, strength=0.5)
+                                            == want["img2img"])
+        styled = w.run_job(_mesh_spec(5, style="s", style_level=3))[0]
+        checks["styled_eq_one_process"] = styled == want["styled"] != base
+        checks["restored_eq_base"] = w.run_job(_mesh_spec(5))[0] == base
+        rp.apply_lora(style, 1.0)
+        try:
+            rp.apply_lora(os.path.join(root, "missing.safetensors"), 1.0)
+            checks["failed_merge_raised"] = False
+        except RuntimeError as e:
+            checks["failed_merge_raised"] = "base weights restored on every rank" in str(e)
+        checks["failed_merge_rows_eq_base"] = [p for p, _ in w.run_jobs(rows)] == want["rows"]
+        call = dict(height=SIZE, width=SIZE, num_inference_steps=STEPS, seed=11)
+        first = rp.generate(MESH_PROMPT, segment=(0, 3), **call)
+        second = rp.generate(MESH_PROMPT, segment=(3, STEPS),
+                             latents_state=first.state_device, **call)
+        checks["segments_eq_full_run"] = np.array_equal(
+            second.images, rp.generate(MESH_PROMPT, **call).images)
+        router_ms, solo_ms = [], []
+        for i in range(MESH_DP_SAMPLES):  # in turns
+            t0 = time.perf_counter()
+            http_call(srv.port, "POST", "/generate", gen(600 + i))
+            router_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            sw.run_job(_mesh_spec(600 + i))
+            solo_ms.append(1e3 * (time.perf_counter() - t0))
+        out.update(router_generate_ms=router_ms, run_job_ms=solo_ms,
+                   router_generate_p50_ms=statistics.median(router_ms),
+                   run_job_p50_ms=statistics.median(solo_ms))
+    finally:
+        srv.stop()  # the pool stays: closing its worker would drop rank 1's buckets
+    out["checks"] = checks
+    return out
+
+
+def mesh_rank(root: str) -> int:
+    """One rank of the mesh phase (``parallel.multihost.run_ranks``): SD1.5
+    at full width from the same seeded weights on both ranks; the data axis
+    (rank 0 serves, rank 1 replays), then the model axis (both ranks run the
+    same eager calls). Writes ``rank{r}.json`` under ``root``; rank 0 writes
+    the style's LoRA there too, before rank 1 reads it (in the merge rank 0
+    broadcasts)."""
+    import torch.distributed as dist
+
+    from dreamlab_tpu_torch.parallel.multihost_router import MultihostRouter, RouterPipeline
+    from dreamlab_tpu_torch.parallel.sharding import make_mesh
+    from dreamlab_tpu_torch.pipeline import _GraphProgram
+
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    bundle = random_bundle(seed=0, device="cuda")
+    style = os.path.join(root, "style.safetensors")
+    if rank == 0:
+        save_file(random_lora(bundle.unet_params, rank=STYLE_RANK, seed=21), style)
+    dp_mesh, tp_mesh = make_mesh(model=1), make_mesh(model=2)  # data=2; model=2
+    router = MultihostRouter(timeout=MESH_TIMEOUT_S)
+    dp = LCMPipeline(bundle, mesh=dp_mesh)
+    rp = RouterPipeline(dp, router)
+    solo = LCMPipeline(bundle) if rank == 0 else None
+    out = {"rank": rank, "setup_s": time.perf_counter() - t0,
+           "backend": str(dist.get_backend()), "tp_graphs": None}
+    t0 = time.perf_counter()
+    reset_counts()  # rank 0 resets again once its single-process references are done
+    if rank == 0:
+        out["dp"] = _mesh_dp_primary(rp, solo, style, root)
+        rp.shutdown()
+    else:
+        out["served"] = rp.serve_follower()
+    out["dp_launches"] = counts()
+    out["dp_buckets"] = [[str(k), type(p) is _GraphProgram, getattr(p, "capture_s", None)]
+                         for k, p in dp._compiled.items()]
+    out["dp_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tp = LCMPipeline(bundle, mesh=tp_mesh, tensor_parallel=True)
+    out["tp_graphs"], out["tp_model_group_on_device"] = tp.graphs, tp._tp.on_device
+    counted = tp._tp = _CountedGroup(tp._tp)
+    reset_counts()
+    seen = census(tp)
+    out["tp_launches"] = counts()
+    out["tp_census"] = [[k[0], list(k[1]), k[2], c] for k, c in sorted(seen.items())]
+    out["tp_all_reduces"], out["tp_all_reduce_ms"] = counted.calls, counted.ms
+    tp._tp = counted.group
+    call = dict(height=SIZE, width=SIZE, num_inference_steps=STEPS)
+    tp_ms = []
+    for i in range(MESH_TP_SAMPLES):
+        t1 = time.perf_counter()
+        res = tp.generate(MESH_PROMPT, seed=5 + i, **call)
+        tp_ms.append(1e3 * (time.perf_counter() - t1))
+        if i == 0:
+            tp_first = res
+    out["tp_ms"], out["tp_p50_ms"] = tp_ms, statistics.median(tp_ms)
+    # the same split in fp32 (the bundle's own leaves, shared): there the
+    # GEMMs' rounding is far below a level, so the comparison tests the split
+    tp32 = LCMPipeline(bundle, dtype=torch.float32, mesh=tp_mesh, tensor_parallel=True)
+    tp32_first = tp32.generate(MESH_PROMPT, seed=5, **call)
+    if rank == 0:
+        def versus(got, want) -> dict:
+            px = np.abs(got.images.astype(np.int16) - want.images.astype(np.int16))
+            return {"max_pixel_delta": int(px.max()), "pixels_moved": float((px > 0).mean()),
+                    "latents_max_abs_err": float(np.abs(got.latents - want.latents).max()),
+                    "latents_max_abs": float(np.abs(want.latents).max())}
+
+        out["tp_vs_one_process"] = versus(tp_first,
+                                          solo._generate_eager(MESH_PROMPT, seed=5, **call))
+        solo32 = LCMPipeline(bundle, dtype=torch.float32)
+        out["tp_vs_one_process_fp32"] = versus(
+            tp32_first, solo32._generate_eager(MESH_PROMPT, seed=5, **call))
+        eager_ms = []
+        for i in range(MESH_TP_SAMPLES):
+            t1 = time.perf_counter()
+            solo._generate_eager(MESH_PROMPT, seed=5 + i, **call)
+            eager_ms.append(1e3 * (time.perf_counter() - t1))
+        out["one_process_eager_ms"] = eager_ms
+        out["one_process_eager_p50_ms"] = statistics.median(eager_ms)
+    del bundle
+    out["tp_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def split_gemm_rounding() -> dict:
+    """What the model axis's split does to one bf16 GEMM of the main path's
+    widest transformer site (4096 tokens, 320 features): the q projection at
+    half the output rows against the first half of the whole one, and the
+    out-projection as two fp32 partial products over half the inputs each,
+    summed and rounded, against the whole bf16 GEMM. Share of elements that
+    differ, and the largest difference in bf16 ulps of the whole result."""
+    x, w = randn((4096, 320), torch.bfloat16, 31), randn((320, 320), torch.bfloat16, 32) / 18
+    whole = F.linear(x, w)
+    q_half = F.linear(x, w[:160])
+    split = (F.linear(x[:, :160].float(), w[:, :160].float())
+             + F.linear(x[:, 160:].float(), w[:, 160:].float())).to(torch.bfloat16)
+
+    def diff(a, b) -> dict:
+        d = (a.float() - b.float()).abs()
+        ulp = torch.finfo(torch.bfloat16).eps * b.float().abs().clamp_min(1e-30)
+        return {"elements_differing": float((d > 0).float().mean()),
+                "max_ulps": float((d / ulp).max())}
+
+    return {"q_half_rows": diff(q_half, whole[:, :160]), "out_split_inputs": diff(split, whole)}
+
+
+def mesh_phase(rows, errs, smi: str) -> tuple:
+    """Phase 8c: the two ranks (``mesh_rank``), then their results checked;
+    K1 at the tensor-parallel shapes held against its plain version and
+    timed here, once the ranks are gone. Returns the phase's line and the
+    kernels line's ``_mesh_dp`` and ``_mesh_tp`` entries."""
+    from dreamlab_tpu_torch.parallel.multihost import run_ranks
+
+    t0 = time.perf_counter()
+    log({"mesh": {"backend": "gloo", "why": MESH_WHY, "card": smi}})
+    with tempfile.TemporaryDirectory(prefix="dreamlab_mesh_") as root:
+        run_ranks("chip_smoke:mesh_rank", ["cuda:0", "cuda:0"], backend="gloo",
+                  timeout=MESH_TIMEOUT_S, args={"root": root})
+        ranks = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in (0, 1)]
+    r0, r1 = ranks
+    dp = r0["dp"]
+    for name, ok in dp["checks"].items():
+        expect(ok, f"mesh data axis: {name}")
+    for r in ranks:
+        expect(r["backend"] == "gloo", f"rank {r['rank']} ran over {r['backend']}")
+        expect(r["dp_launches"]["flash"] > 0 and r["dp_launches"]["gn"] > 0,
+               f"rank {r['rank']}'s data-axis path launched {r['dp_launches']}")
+        expect(r["dp_buckets"] and all(g for _, g, _ in r["dp_buckets"]),
+               f"rank {r['rank']}'s data-axis buckets are not all captured graphs: "
+               f"{r['dp_buckets']}")
+        expect(r["tp_graphs"] is False and r["tp_model_group_on_device"] is False,
+               f"rank {r['rank']}: a gloo model group must run its buckets eagerly")
+        expect(r["tp_launches"]["flash"] == 40 and r["tp_launches"]["gn"] == 209,
+               f"rank {r['rank']}'s tensor-parallel request launched {r['tp_launches']}")
+        expect(r["tp_all_reduces"] == MESH_TP_ALL_REDUCES,
+               f"rank {r['rank']} ran {r['tp_all_reduces']} all-reduces a request, expected "
+               f"{MESH_TP_ALL_REDUCES}")
+    seen = collections.Counter({(k, tuple(s), e): c for k, s, e, c in r0["tp_census"]})
+    flash = {key: c for key, c in seen.items() if key[0] == "flash"}
+    expect(flash == {("flash", (1, 4096, 4, 40), 4096): 20,
+                     ("flash", (1, 1024, 4, 80), 1024): 20},
+           f"the tensor-parallel census saw {flash}")
+    expect(r1["served"] >= 10, f"rank 1 served {r1['served']} messages")
+    cmp, cmp32 = r0["tp_vs_one_process"], r0["tp_vs_one_process_fp32"]
+    expect(cmp32["max_pixel_delta"] <= 1,
+           f"fp32 tensor-parallel image {cmp32['max_pixel_delta']} levels off the single "
+           "process")
+    expect(cmp32["latents_max_abs_err"] <= MESH_TP_LATENT_TOL,
+           f"fp32 tensor-parallel latents {cmp32['latents_max_abs_err']} off (limit "
+           f"{MESH_TP_LATENT_TOL})")
+    gemms = split_gemm_rounding()
+    tp_errs = collections.defaultdict(float)
+    tp_rows = time_kernels(collections.Counter(flash), torch.bfloat16, tp_errs, parts=False)
+    tp_rows["gn"], tp_errs["gn"] = rows["gn"], errs["gn"]
+    tp_errs["gn_beyond"] = errs["gn_beyond"]
+    launches = lambda key: {k: sum(r[key][k] for r in ranks) for k in r0[key]}
+    line = {"mesh": {
+        "card": smi, "backend": "gloo", "why": MESH_WHY,
+        "data_axis": {**{k: v for k, v in dp.items() if k != "checks"},
+                      "checks": dp["checks"], "buckets": [r["dp_buckets"] for r in ranks],
+                      "launches_per_rank": [r["dp_launches"] for r in ranks],
+                      "served_by_rank_1": r1["served"]},
+        "model_axis": {"graphs": r0["tp_graphs"], "launches_per_rank":
+                       [r["tp_launches"] for r in ranks],
+                       "all_reduces_per_request": [r["tp_all_reduces"] for r in ranks],
+                       "all_reduce_ms_per_request": [r["tp_all_reduce_ms"] for r in ranks],
+                       "tp_p50_ms": r0["tp_p50_ms"], "tp_ms": r0["tp_ms"],
+                       "one_process_eager_p50_ms": r0["one_process_eager_p50_ms"],
+                       "one_process_eager_ms": r0["one_process_eager_ms"],
+                       "vs_one_process": cmp, "vs_one_process_fp32": cmp32,
+                       "latent_limit_fp32": MESH_TP_LATENT_TOL, "split_gemms_bf16": gemms,
+                       "per_request_ms": {k: dict(v) for k, v in tp_rows.items()
+                                          if k == "flash"}},
+        "rank_s": [{k: r[k] for k in ("setup_s", "dp_s", "tp_s")} for r in ranks],
+        "phase_s": time.perf_counter() - t0}}
+    entries = (kernel_entries(rows, launches("dp_launches"), errs, "_mesh_dp", ("flash", "gn"))
+               + kernel_entries(tp_rows, launches("tp_launches"), tp_errs, "_mesh_tp",
+                                ("flash", "gn")))
+    return line, entries
 
 
 # ---------------------------------------------------------------------------
@@ -2922,6 +3282,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         return 1
+    timer = threading.Timer(WATCHDOG_S, watchdog)
+    timer.daemon = True
+    timer.start()
     smi = smi_line()
     log(smi)
 
@@ -3030,6 +3393,10 @@ def main() -> int:
     end_phase("ensemble")
     log(ens_line)
 
+    mesh_line, mesh_entries = mesh_phase(rows, errs, smi)
+    end_phase("mesh")
+    log(mesh_line)
+
     probe_entries, probe_line = probes(errs)
     log(probe_line)
     log({"total_s": time.perf_counter() - start})
@@ -3043,7 +3410,8 @@ def main() -> int:
                + kernel_entries(*xl_i2i, "_encoder_sdxl", ("gn",))
                + kernel_entries(*xl_tiles, "_sdxl_1344x768", ("flash",))
                + kernel_entries(cn_rows, cn_launches, cn_errs, "_controlnet", ("flash", "gn"))
-               + kernel_entries(ens_rows, ens_launches, ens_errs, "_refiner", ("flash", "gn")))
+               + kernel_entries(ens_rows, ens_launches, ens_errs, "_refiner", ("flash", "gn"))
+               + mesh_entries)
     log({"kernels": kernels + probe_entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -36,6 +36,12 @@ instead of swapping the tree by pointer as the reference does:
   registry under the bytes they hold ("lora:..." and "lora-base:..."),
   where the reference registers a whole UNet per entry.
 
+A pipeline with its own ``apply_lora(path, scale)`` (the multi-rank
+``parallel.multihost_router.RouterPipeline``, which replays every merge on
+every rank) merges the style itself, as the JAX worker prefers it; the
+worker then only tracks which style is on, and a failed merge across the
+ranks, which restores the base weights everywhere, leaves it unstyled.
+
 A replay reads the live leaves when the card runs it, not when it is
 queued (the JAX package's in-flight call holds the buffers it was given),
 so merges and restores are queued on the stream the replays run on: a
@@ -122,6 +128,8 @@ class CudaPipelineWorker:
         # registry names, unique per worker instance: pools may build several
         # workers with one worker_id, and the registry overwrites equal names
         self._tag = f"{worker_id}:{id(self):x}"
+        # (lora path, scale) a pipeline's own apply_lora has on; None: base
+        self._fleet_style: Optional[Tuple[str, float]] = None
         # serializes the pipeline's graph captures and replays, and styles
         self._lock = threading.Lock()
         if warmup:
@@ -144,6 +152,14 @@ class CudaPipelineWorker:
             if sdef.required_cross_attention_dim not in (None, cad):
                 raise ValueError(f"style {style!r} requires cross_attention_dim="
                                  f"{sdef.required_cross_attention_dim}, model has {cad}")
+        apply_lora = getattr(self.pipeline, "apply_lora", None)
+        if apply_lora is not None:
+            key = None if style is None else (sdef.path, sdef.strength_for_level(level))
+            if key != self._fleet_style:
+                self._fleet_style = None  # what a failed merge leaves: the base weights
+                apply_lora(*(key or (None,)))
+                self._fleet_style = key
+            return
         with device_lock(self.pipeline.device).shared():
             params = self.pipeline.unet_params
             # back to base first: the next style may not touch every leaf this one wrote
@@ -163,7 +179,8 @@ class CudaPipelineWorker:
                     self._style_cache[sdef.path] = lora.load_lora(sdef.path)
                 modules = self._style_cache[sdef.path].unet
                 self._keep_base(params, modules)
-                values = lora.merged_leaves(params, modules, scale, base=self._base)
+                values = lora.merged_leaves(params, modules, scale, base=self._base,
+                                            shard=self.pipeline.unet_leaf_slice)
             lora.write_leaves(params, values)
             self._active_paths = tuple(values)
             if cached is None:

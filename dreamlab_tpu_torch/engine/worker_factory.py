@@ -66,7 +66,8 @@ def apply_mode_loras(pipeline, loras) -> None:
         t0 = time.perf_counter()
         try:
             tensors = lora.load_lora(entry.file)
-            lora.merge_lora_into_tree(pipeline.unet_params, tensors.unet, entry.strength)
+            lora.merge_lora_into_tree(pipeline.unet_params, tensors.unet, entry.strength,
+                                      shard=pipeline.unet_leaf_slice)
             if tensors.text:
                 lora.merge_lora_into_tree(pipeline.text_params, tensors.text, entry.strength)
         except Exception as e:  # warn-don't-raise: never fail a mode over an adapter
@@ -96,14 +97,16 @@ def attach_mode_controlnet(pipeline, controlnet) -> float:
     return controlnet.scale
 
 
-def _load_refiner(refiner, *, dtype, device) -> Optional[LCMPipeline]:
+def _load_refiner(refiner, *, dtype, device, mesh=None,
+                  tensor_parallel: bool = False) -> Optional[LCMPipeline]:
     """A mode's refiner checkpoint (``.file``) as a pipeline with its VAE
     encoder, or None with a warning where it cannot load (the worker then
     serves the base alone)."""
     t0 = time.perf_counter()
     try:
         pipe = LCMPipeline(load_pipeline(refiner.file, device=device, load_vae_encoder=True),
-                           dtype=dtype, device=device)
+                           dtype=dtype, device=device, mesh=mesh,
+                           tensor_parallel=tensor_parallel)
     except Exception as e:  # warn-don't-raise, as for LoRAs and ControlNets
         logger.warning("refiner %s not loaded (%s); serving base only", refiner.file, e)
         return None
@@ -115,7 +118,8 @@ def _load_refiner(refiner, *, dtype, device) -> Optional[LCMPipeline]:
 def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
                        device=None, styles: Optional[Dict[str, lora.StyleDef]] = None,
                        loras=None, embeddings=None, controlnet=None, refiner=None,
-                       warmup_size: Optional[Tuple[int, int]] = None) -> CudaPipelineWorker:
+                       warmup_size: Optional[Tuple[int, int]] = None, mesh=None,
+                       tensor_parallel: bool = False) -> CudaPipelineWorker:
     """Load a checkpoint (diffusers directory or single file) with its VAE
     encoder and wrap it in a CudaPipelineWorker on ``device`` (None = the
     CUDA device; "cpu" runs the plain versions).
@@ -128,6 +132,9 @@ def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
     refiner: the mode's refiner checkpoint (``.file``, ``.switch_at``),
     loaded beside it for the base -> refiner ensemble. warmup_size:
     (width, height) of a bucket to capture before the worker is returned.
+    mesh, tensor_parallel: this rank's ("data", "model") mesh and whether
+    the UNet splits over its model axis, for the pipeline and the refiner's
+    (``LCMPipeline``).
     """
     dev = resolve_device(device)
     arch = detect_worker_type(model_path)
@@ -135,7 +142,8 @@ def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
     bundle = load_pipeline(model_path, device=dev, load_vae_encoder=True)
     if embeddings:
         apply_embeddings(bundle, embeddings)
-    pipeline = LCMPipeline(bundle, dtype=dtype, device=dev)
+    pipeline = LCMPipeline(bundle, dtype=dtype, device=dev, mesh=mesh,
+                           tensor_parallel=tensor_parallel)
     del bundle
     if loras:
         apply_mode_loras(pipeline, loras)
@@ -143,7 +151,8 @@ def create_cuda_worker(worker_id: int, model_path: str, *, dtype=torch.bfloat16,
     if controlnet is not None:
         ensemble["controlnet_scale"] = attach_mode_controlnet(pipeline, controlnet)
     if refiner is not None:
-        ensemble["refiner"] = _load_refiner(refiner, dtype=dtype, device=dev)
+        ensemble["refiner"] = _load_refiner(refiner, dtype=dtype, device=dev, mesh=mesh,
+                                            tensor_parallel=tensor_parallel)
         if ensemble["refiner"] is not None:
             ensemble["refiner_switch_at"] = refiner.switch_at
     logger.info("worker %d: loaded %s (%s) in %.1fs", worker_id, model_path, arch,

@@ -23,8 +23,10 @@ Where the card asks for more than the JAX package does:
   graphs, collects and empties the CUDA cache with the device lock held
   exclusively, so the next load's ``can_fit`` reads the freed bytes.
 
-The JAX pool's refusal of per-request mode routing under a multi-host
-router has no counterpart: the port has no router.
+Per-request mode routing (tenants) is refused under the multi-rank router
+(``parallel/multihost_router.py``), as in the JAX pool: a tenant worker
+built here would exist on rank 0 only, and its jobs would desynchronize the
+other ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +42,15 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, Optional
 
 logger = logging.getLogger(__name__)
+
+
+_TENANT_REFUSAL = ("per-request mode routing is single-rank: a multi-rank deployment serves "
+                   "one mode at a time (switch modes instead)")
+
+
+def _routed(worker) -> bool:
+    """Whether a worker's pipeline broadcasts its calls to other ranks."""
+    return getattr(getattr(worker, "pipeline", None), "_router", None) is not None
 
 
 class JobType(enum.Enum):
@@ -481,6 +492,8 @@ class WorkerPool:
                 f"{self.mode_cache_size} leaves no room for warm tenants — "
                 "switch modes or raise the cache size"
             )
+        if _routed(self.worker):
+            raise ValueError(_TENANT_REFUSAL)
         mode = self.mode_config.get_mode(mode_name)
         sig = self._mode_signature(mode)
         # a cached worker whose config changed since caching is about to be
@@ -503,6 +516,11 @@ class WorkerPool:
         self._evict_until_fits(mode)
         t0 = time.time()
         worker = self._build_worker(mode_name, mode)
+        # with no active worker (load_default=False, a failed switch) only
+        # the worker just built shows the router: refuse before serving it
+        if _routed(worker):
+            self._dispose_worker(mode_name, worker)
+            raise ValueError(_TENANT_REFUSAL)
         with self._state_lock:
             self._mode_cache[mode_name] = (sig, worker)
         self._trim_cache()

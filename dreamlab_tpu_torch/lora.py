@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import re
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -176,10 +176,14 @@ def leaf(params, path: str) -> Optional[torch.Tensor]:
 
 
 def merged_leaves(params, modules: Dict[str, Module], scale: float,
-                  base: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                  base: Optional[Dict[str, torch.Tensor]] = None,
+                  shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                  ) -> Dict[str, torch.Tensor]:
     """{path: merged weight} for each adapter module whose leaf ``params``
     has, merged from ``base[path]`` where given, else from the live leaf;
-    new tensors in each leaf's dtype, on its device. A path the tree lacks
+    new tensors in each leaf's dtype, on its device. ``shard(leaf path,
+    delta)`` gives the part of the whole delta a tensor-parallel rank's
+    leaf holds (``LCMPipeline.unet_leaf_slice``). A path the tree lacks
     warns and is skipped; a shape that does not fit raises, before any
     leaf is written. Scale 0 merges nothing."""
     out: Dict[str, torch.Tensor] = {}
@@ -193,6 +197,8 @@ def merged_leaves(params, modules: Dict[str, Module], scale: float,
         src = w if base is None else base[path]
         eff = scale * (alpha / down.shape[0])
         delta = torch.matmul(up.to(w.device, torch.float32), down.to(w.device, torch.float32))
+        if shard is not None:
+            delta = shard(f"{path}.w", delta)
         if delta.shape != w.shape:
             raise ValueError(f"lora: {path} delta {tuple(delta.shape)} does not fit the "
                              f"weight {tuple(w.shape)}")
@@ -207,10 +213,13 @@ def write_leaves(params, values: Dict[str, torch.Tensor]) -> None:
             _tree_get(params, path)["w"].copy_(v)
 
 
-def merge_lora_into_tree(params, modules: Dict[str, Module], scale: float) -> int:
+def merge_lora_into_tree(params, modules: Dict[str, Module], scale: float,
+                         shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                         ) -> int:
     """Merge an adapter's modules into ``params`` in place (every value is
-    computed before any leaf is written). Returns the leaves written."""
-    values = merged_leaves(params, modules, scale)
+    computed before any leaf is written; ``shard`` as for
+    ``merged_leaves``). Returns the leaves written."""
+    values = merged_leaves(params, modules, scale, shard=shard)
     write_leaves(params, values)
     return len(values)
 

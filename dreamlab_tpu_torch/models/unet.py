@@ -13,6 +13,16 @@ q/k/v stay three projections: the JAX package packs them into one matmul
 pays on the card is not measured yet. ``forward`` takes a ControlNet's
 residual taps (``models/controlnet.py``): one per skip connection and one
 for the mid block's output.
+
+Tensor parallelism (``forward(..., tp=)``, ``tp`` a
+``parallel.sharding.ModelGroup``): a model rank's tree holds its slice of
+the split leaves (``parallel.sharding.unet_tp_placements``), and the
+forward reads the split from the leaves' shapes. A site whose q/k/v rows
+are a slice runs its rank's heads only; the attention and feed-forward
+out-projections of a split site give partial products over the rank's
+input features, summed over the model group in fp32 before the bias is
+added once. A site left whole runs as without ``tp``. With ``tp=None`` the
+forward is the single-device one.
 """
 
 from __future__ import annotations
@@ -50,29 +60,55 @@ def _resnet(p, x, emb, *, groups):
     return x + h
 
 
-def _attention(p, x, context, *, heads, impl="auto"):
+def _row_parallel(p, x, tp):
+    """A linear over a model rank's slice of the input features: the
+    partial product in fp32 (bf16 operands upcast, so no partial is rounded
+    to bf16), summed over the model group, then the bias (added once) and
+    one rounding to ``x``'s dtype, as one device's GEMM rounds its product."""
+    y = tp.all_reduce(linear({"w": p["w"].float()}, x.float()))
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
+
+
+def _attention(p, x, context, *, heads, impl="auto", tp=None):
     """Multi-head attention over the token axis. x: [B, N, C]; context:
-    [B, M, Cc] or None for self-attention."""
+    [B, M, Cc] or None for self-attention. On a model rank whose q/k/v rows
+    are a slice, its heads only, and the out-projection summed over ``tp``."""
     b, n, c = x.shape
     d = c // heads
     ctx = x if context is None else context
     m = ctx.shape[1]
-    q = linear(p["q"], x).reshape(b, n, heads, d)
-    k = linear(p["k"], ctx).reshape(b, m, heads, d)
-    v = linear(p["v"], ctx).reshape(b, m, heads, d)
-    out = dot_product_attention(q, k, v, impl=impl)
-    return linear(p["out"], out.reshape(b, n, c))
+    q = linear(p["q"], x)
+    local = q.shape[-1]  # c, or this rank's slice of it
+    h = local // d
+    q = q.reshape(b, n, h, d)
+    k = linear(p["k"], ctx).reshape(b, m, h, d)
+    v = linear(p["v"], ctx).reshape(b, m, h, d)
+    out = dot_product_attention(q, k, v, impl=impl).reshape(b, n, local)
+    return linear(p["out"], out) if local == c else _row_parallel(p["out"], out, tp)
 
 
-def _transformer_block(p, x, context, *, heads, impl="auto"):
+def _feed_forward(p, x, tp=None):
+    """GEGLU, then the out-projection (over this rank's slice of the hidden
+    features where ``ff_out`` is split)."""
+    h = geglu(p["ff_geglu"], x)
+    k = p["ff_out"]["w"].shape[1]
+    if k == h.shape[-1]:
+        return linear(p["ff_out"], h)
+    return _row_parallel(p["ff_out"], h[..., tp.rank * k:(tp.rank + 1) * k], tp)
+
+
+def _transformer_block(p, x, context, *, heads, impl="auto", tp=None):
     """BasicTransformerBlock: self-attn, cross-attn, GEGLU FF (pre-LN)."""
-    x = x + _attention(p["attn1"], layer_norm(p["ln1"], x), None, heads=heads, impl=impl)
-    x = x + _attention(p["attn2"], layer_norm(p["ln2"], x), context, heads=heads, impl=impl)
-    h = layer_norm(p["ln3"], x)
-    return x + linear(p["ff_out"], geglu(p["ff_geglu"], h))
+    x = x + _attention(p["attn1"], layer_norm(p["ln1"], x), None, heads=heads, impl=impl,
+                       tp=tp)
+    x = x + _attention(p["attn2"], layer_norm(p["ln2"], x), context, heads=heads, impl=impl,
+                       tp=tp)
+    return x + _feed_forward(p, layer_norm(p["ln3"], x), tp)
 
 
-def _spatial_transformer(p, x, context, *, heads, groups, impl="auto"):
+def _spatial_transformer(p, x, context, *, heads, groups, impl="auto", tp=None):
     """Transformer2DModel: GN (eps 1e-6, no SiLU), project in, token-space
     blocks, project out, residual."""
     b, h_, w_, c = x.shape
@@ -80,7 +116,7 @@ def _spatial_transformer(p, x, context, *, heads, groups, impl="auto"):
     x = group_norm(p["norm"], x, groups=groups, eps=1e-6)
     x = linear(p["proj_in"], x.reshape(b, h_ * w_, c))
     for blk in p["blocks"]:
-        x = _transformer_block(blk, x, context, heads=heads, impl=impl)
+        x = _transformer_block(blk, x, context, heads=heads, impl=impl, tp=tp)
     x = linear(p["proj_out"], x)
     return x.reshape(b, h_, w_, c) + residual
 
@@ -111,7 +147,7 @@ def time_embed(params, cfg: UNetConfig, timesteps, timestep_cond: Optional[torch
     return emb
 
 
-def down_blocks(params, cfg: UNetConfig, x, emb, context):
+def down_blocks(params, cfg: UNetConfig, x, emb, context, tp=None):
     """The down stack on post-conv_in ``x``: returns (x, skips), one skip per
     connection the up stack consumes (the initial sample included)."""
     skips = [x]
@@ -122,7 +158,7 @@ def down_blocks(params, cfg: UNetConfig, x, emb, context):
             if block.get("attentions"):
                 x = _spatial_transformer(
                     block["attentions"][j], x, context, heads=heads,
-                    groups=cfg.norm_groups, impl=cfg.attention_impl)
+                    groups=cfg.norm_groups, impl=cfg.attention_impl, tp=tp)
             skips.append(x)
         if "downsample" in block:
             x = conv2d(block["downsample"], x, stride=2)
@@ -130,19 +166,19 @@ def down_blocks(params, cfg: UNetConfig, x, emb, context):
     return x, skips
 
 
-def mid_block(params, cfg: UNetConfig, x, emb, context):
+def mid_block(params, cfg: UNetConfig, x, emb, context, tp=None):
     mid = params["mid"]
     x = _resnet(mid["resnet1"], x, emb, groups=cfg.norm_groups)
     if "attention" in mid:
         x = _spatial_transformer(
             mid["attention"], x, context, heads=cfg.num_attention_heads[-1],
-            groups=cfg.norm_groups, impl=cfg.attention_impl)
+            groups=cfg.norm_groups, impl=cfg.attention_impl, tp=tp)
     return _resnet(mid["resnet2"], x, emb, groups=cfg.norm_groups)
 
 
 def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
             timestep_cond=None, added_text_embeds=None, added_time_ids=None,
-            down_residuals=None, mid_residual=None):
+            down_residuals=None, mid_residual=None, tp=None):
     """Predict noise for ``sample`` [B, H, W, 4] at ``timesteps`` [B].
 
     encoder_hidden_states: [B, 77, cross_attention_dim] text conditioning.
@@ -153,6 +189,8 @@ def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
     connection plus one for the mid output, cast to their dtype and added to
     the skips the up stack reads and to the mid output (diffusers'
     contract). Left None, the function is the plain UNet.
+    tp: the model group (``parallel.sharding.ModelGroup``) of a rank whose
+    ``params`` hold its tensor-parallel slices; None on one device.
     Returns fp32 [B, H, W, 4].
     """
     if cfg.addition_embed_type not in (None, "text_time"):
@@ -167,14 +205,14 @@ def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
                      added_time_ids, dtype)
 
     x = conv2d(params["conv_in"], x)
-    x, skips = down_blocks(params, cfg, x, emb, context)
+    x, skips = down_blocks(params, cfg, x, emb, context, tp)
     if down_residuals is not None:
         if len(down_residuals) != len(skips):
             raise ValueError(f"ControlNet provides {len(down_residuals)} down residuals but "
                              f"this UNet has {len(skips)} skip connections: architecture "
                              "mismatch")
         skips = [s + r.to(s.dtype) for s, r in zip(skips, down_residuals)]
-    x = mid_block(params, cfg, x, emb, context)
+    x = mid_block(params, cfg, x, emb, context, tp)
     if mid_residual is not None:
         x = x + mid_residual.to(x.dtype)
     for k, block in enumerate(params["up"]):
@@ -185,7 +223,7 @@ def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
             if block.get("attentions"):
                 x = _spatial_transformer(
                     block["attentions"][j], x, context, heads=heads,
-                    groups=cfg.norm_groups, impl=cfg.attention_impl)
+                    groups=cfg.norm_groups, impl=cfg.attention_impl, tp=tp)
         if "upsample" in block:
             x = conv2d(block["upsample"], nearest_upsample(x))
 

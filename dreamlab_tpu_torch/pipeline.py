@@ -94,6 +94,20 @@ super-resolution forward) holds it shared and releases it before waiting on
 the host. So a bucket can be captured on one thread while others replay,
 merge and upscale, and none of their launches lands inside the capture.
 One pipeline's captures and dispatches are serialized by its own lock.
+
+A mesh (``LCMPipeline(mesh=, tensor_parallel=)``, one rank per device,
+``parallel/sharding.py``): every rank stages the whole request batch from
+the same seeds (so the same host noise, and under device RNG the same
+draws, taken before the rows are split) and keeps its data rank's rows; the
+bucket key holds the local batch, so a batch-2 request on two data ranks
+replays the batch-1 graph of solo requests. After the program the images
+and latents are gathered over the data group in rank order, so every rank
+returns the whole batch. With ``tensor_parallel`` the UNet's transformer
+blocks are split over the model axis (text towers, VAE and ControlNet stay
+whole on every rank); its buckets hold collectives, captured where the
+model group runs them on the device (NCCL) and run eagerly over a host
+(gloo) group, which a graph cannot capture: the choice is the group's
+backend, made when the pipeline is built.
 """
 
 from __future__ import annotations
@@ -112,6 +126,8 @@ import torch
 
 from .models import clip_text, controlnet, unet, vae
 from .models.configs import CLIPTextConfig, UNetConfig, VAEConfig
+from .parallel.sharding import (ModelGroup, data_rows, gather_rows, shard_leaf, shard_params,
+                                unet_tp_placements)
 from .scheduler.lcm import (
     LCMConfig,
     LCMSchedule,
@@ -133,6 +149,9 @@ NEGATIVE_AESTHETIC_SCORE = 2.5
 # where a request has them, ("segment", (start, stop)), ("progress", mode),
 # ("ctrl", ControlNet config)
 BucketKey = Tuple
+
+# staged inputs without a batch axis
+_UNBATCHED = frozenset(("ctrl_scale", *SCHEDULE_FIELDS))
 
 
 @dataclasses.dataclass
@@ -258,13 +277,16 @@ class _Staged:
     """One request after host staging: its bucket and its program's inputs
     (host arrays, and a segment's carry as a device tensor; in device-RNG
     mode without the two noise arrays), and its progress callback's
-    registry token (0: none)."""
+    registry token (0: none). On a data rank of a mesh that splits the
+    batch: ``rows``, the rank's rows of the request's ``batch``."""
 
     key: BucketKey
     inputs: Dict[str, Any]
     seed: int
     init_noise_sigma: float
     progress_token: int = 0
+    rows: Optional[slice] = None
+    batch: int = 0
 
 
 def _extras(key: BucketKey) -> Dict[str, Any]:
@@ -329,14 +351,19 @@ def _flat(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def _draw_device_noise(seed: int, lat0: torch.Tensor, noises: torch.Tensor,
-                       init_noise_sigma: float) -> None:
+def _draw_device_noise(staged: _Staged, lat0: torch.Tensor, noises: torch.Tensor) -> None:
     """Device RNG: fill the program's noise inputs in place from a generator
     on their device seeded with the seed (latents first, scaled by the init
-    sigma, then the per-step noise)."""
-    gen = torch.Generator(device=lat0.device).manual_seed(seed & 0x7FFFFFFF)
-    lat0.normal_(generator=gen).mul_(init_noise_sigma)
-    noises.normal_(generator=gen)
+    sigma, then the per-step noise). A data rank draws the whole batch's
+    noise and keeps its rows, so each row is the one a single device draws."""
+    gen = torch.Generator(device=lat0.device).manual_seed(staged.seed & 0x7FFFFFFF)
+    if staged.rows is None:
+        lat0.normal_(generator=gen).mul_(staged.init_noise_sigma)
+        noises.normal_(generator=gen)
+        return
+    full = lambda t, axis: t.new_empty(t.shape[:axis] + (staged.batch,) + t.shape[axis + 1:])
+    lat0.copy_(full(lat0, 0).normal_(generator=gen).mul_(staged.init_noise_sigma)[staged.rows])
+    noises.copy_(full(noises, 1).normal_(generator=gen)[:, staged.rows])
 
 
 def _tensor(v) -> torch.Tensor:
@@ -352,7 +379,7 @@ def _device_inputs(pipe: "LCMPipeline", staged: _Staged) -> Dict[str, torch.Tens
     x = {k: _tensor(v).to(pipe.device, copy=True) for k, v in staged.inputs.items()}
     if staged.key[5] == "device":
         x.update(pipe._noise_buffers(staged.key))
-        _draw_device_noise(staged.seed, x["lat0"], x["noises"], staged.init_noise_sigma)
+        _draw_device_noise(staged, x["lat0"], x["noises"])
     return x
 
 
@@ -480,8 +507,7 @@ class _GraphProgram:
                 for name, v in staged.inputs.items():
                     self.inputs[name].copy_(_pinned(v), non_blocking=True)
                 if staged.key[5] == "device":
-                    _draw_device_noise(staged.seed, self.inputs["lat0"], self.inputs["noises"],
-                                       staged.init_noise_sigma)
+                    _draw_device_noise(staged, self.inputs["lat0"], self.inputs["noises"])
                 self.graph.replay()
                 res = _result(staged, self.outputs)
             for i, event in enumerate(self.events or ()):
@@ -506,18 +532,38 @@ class LCMPipeline:
         dtype: compute/param dtype (bf16, as in the JAX package).
         device: None = the CUDA device (raises if there is none); "cpu" runs
             every kernel's plain version.
+        mesh: this rank's ("data", "model") ``DeviceMesh``
+            (``parallel.sharding.make_mesh``); every rank of it builds the
+            pipeline from the same weights and runs the same calls.
+        tensor_parallel: split the UNet's transformer blocks over the mesh's
+            model axis.
     """
 
     def __init__(self, bundle: PipelineBundle, *, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None, tensor_parallel: bool = False):
         if bundle.arch not in ("sd15", "sdxl"):
             raise ValueError(f"unknown arch {bundle.arch!r}")
+        if tensor_parallel and mesh is None:
+            raise ValueError("tensor_parallel needs a mesh")
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
         deterministic_backends()
         self.text_params = _place_params(bundle.text_params, dtype, self.device)
         self.text_params_2 = _place_params(bundle.text_params_2, dtype, self.device)
         self.unet_params = _place_params(bundle.unet_params, dtype, self.device)
+        # this rank's UNet slices ({leaf path: the dim it splits, or None}) and
+        # its model group; a whole UNet and None on one device
+        self._unet_split: Dict[str, Optional[int]] = {}
+        self._tp = None
+        if tensor_parallel:
+            placements = unet_tp_placements(self.unet_params, mesh, bundle.unet_cfg)
+            self.unet_params = shard_params(self.unet_params, placements, mesh)
+            self._unet_split = _flat(placements)
+            self._tp = ModelGroup.of(mesh)
+        # a bucket's program on the card is a captured graph, unless it holds
+        # collectives that a graph cannot capture (a gloo model group)
+        self.graphs = self.device.type == "cuda" and (self._tp is None or self._tp.on_device)
         self.vae_params = _place_params(bundle.vae_params, dtype, self.device)
         self.vae_encoder_params = _place_params(bundle.vae_encoder_params, dtype, self.device)
         self.bundle = dataclasses.replace(bundle, text_params=None, text_params_2=None,
@@ -534,8 +580,7 @@ class LCMPipeline:
         self._schedules: Dict[Tuple, LCMSchedule] = {}
         # bucket key -> program (a captured graph on the card, eager on the CPU)
         self._compiled: Dict[BucketKey, Any] = {}
-        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
-                            else None)
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.graphs else None
         # an attached ControlNet (set_controlnet); requests opt in per call
         self.controlnet_params: Optional[Dict] = None
         self.controlnet_cfg: Optional[UNetConfig] = None
@@ -546,6 +591,54 @@ class LCMPipeline:
         # serializes this pipeline's captures and dispatches (a pool's
         # background warm-up captures beside its worker's requests)
         self._lock = threading.Lock()
+
+    def unet_leaf_slice(self, path: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole ``value`` of the UNet leaf at ``path``
+        (the value itself on one device and where the leaf is whole): what a
+        LoRA merge writes into a tensor-parallel rank's leaf."""
+        split = self._unet_split.get(path)
+        return value if split is None else shard_leaf(value, split, self.mesh)
+
+    def _data_rows(self, bsz: int) -> Optional[slice]:
+        """This data rank's rows of a ``bsz``-row batch; None where it runs
+        them all (no mesh, or a batch the data axis does not divide)."""
+        if self.mesh is None:
+            return None
+        rows = data_rows(bsz, self.mesh)
+        return None if rows == slice(0, bsz) else rows
+
+    def _shard_rows(self, staged: _Staged) -> _Staged:
+        """A staged batch cut to this data rank's rows. A segment's carry
+        already holds the rank's rows."""
+        bsz = staged.key[0]
+        rows = self._data_rows(bsz)
+        if rows is None:
+            return staged
+        cfg = staged.key[4] == "cfg"
+        x = {}
+        for name, v in staged.inputs.items():
+            if isinstance(v, torch.Tensor) or name in _UNBATCHED:
+                x[name] = v
+            elif name in ("noises", "noises_known"):  # [S, B, ...]
+                x[name] = np.ascontiguousarray(v[:, rows])
+            elif name == "time_ids" and cfg:  # the uncond rows, then the cond rows
+                x[name] = np.ascontiguousarray(v.reshape(2, bsz, -1)[:, rows].reshape(
+                    -1, v.shape[-1]))
+            else:
+                x[name] = np.ascontiguousarray(v[rows])
+        return dataclasses.replace(staged, key=(rows.stop - rows.start, *staged.key[1:]),
+                                   inputs=x, rows=rows, batch=bsz)
+
+    def _gathered(self, staged: _Staged, res: GenerationResult) -> GenerationResult:
+        """A data rank's result as the whole batch's: its images and latents
+        gathered over the data group in rank order (waited for first)."""
+        if staged.rows is None:
+            return res
+        res.wait()
+        if res.images is not None:
+            res.images = gather_rows(res.images, self.mesh)
+            res.latents = gather_rows(res.latents, self.mesh)
+        return res
 
     def release_graphs(self) -> None:
         """Drop every bucket's program: the graphs, and with the last of them
@@ -780,7 +873,8 @@ class LCMPipeline:
                 down, mid = controlnet.forward(cn, cn_cfg, xin, t, ctx, cond_emb,
                                                conditioning_scale=x["ctrl_scale"], **cn_kw)
                 taps = {"down_residuals": down, "mid_residual": mid}
-            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, t, ctx, **kw, **taps)
+            noise_pred = unet.forward(self.unet_params, b.unet_cfg, xin, t, ctx, **kw, **taps,
+                                      tp=self._tp)
             if mode == "cfg":
                 uncond, cond = noise_pred.chunk(2)
                 noise_pred = uncond + g * (cond - uncond)
@@ -803,10 +897,11 @@ class LCMPipeline:
     def _get_compiled(self, staged: _Staged):
         """The program of ``staged``'s bucket: captured on its first request
         on the card (no eager fallback: a failed capture raises), the eager
-        function on the CPU."""
+        function on the CPU and where ``graphs`` is off (collectives over a
+        host group)."""
         program = self._compiled.get(staged.key)
         if program is None:
-            if self.device.type == "cuda":
+            if self.graphs:
                 program = _GraphProgram(self, staged)
                 logger.info("captured bucket %s in %.2fs (+%d bytes reserved)", staged.key,
                             program.capture_s, program.reserved_bytes)
@@ -907,9 +1002,11 @@ class LCMPipeline:
                                               schedule.init_noise_sigma)
             noises = noises[start:stop]  # a segment's noise: the full run's stream
             if latents_state is not None:
-                # the previous segment's fp32 carry, on the device
+                # the previous segment's fp32 carry, on the device (a data
+                # rank's: its rows)
                 lat0 = latents_state
-                if tuple(lat0.shape) != (bsz, h_lat, w_lat, c):
+                rows = self._data_rows(bsz) or slice(0, bsz)
+                if tuple(lat0.shape) != (rows.stop - rows.start, h_lat, w_lat, c):
                     raise ValueError(f"unexpected latents_state shape {tuple(lat0.shape)}")
             if latents is not None:
                 # provided latents are raw noise, scaled by init sigma
@@ -939,8 +1036,8 @@ class LCMPipeline:
         task = "latent" if stop < num_inference_steps else "txt2img"
         key = (bsz, h_lat, w_lat, num_inference_steps, mode, rng_mode,
                original_inference_steps, task, *extras)
-        return _Staged(key=key, inputs=inputs, seed=seed,
-                       init_noise_sigma=float(schedule.init_noise_sigma))
+        return self._shard_rows(_Staged(key=key, inputs=inputs, seed=seed,
+                                        init_noise_sigma=float(schedule.init_noise_sigma)))
 
     def _hint(self, control_image, bsz: int, height: int, width: int) -> np.ndarray:
         """A ControlNet hint as the program takes it: [B, H, W, 3] fp32 in
@@ -1020,8 +1117,8 @@ class LCMPipeline:
                        for name in SCHEDULE_FIELDS})
         key = (bsz, h_lat, w_lat, num_inference_steps, mode, "host",
                original_inference_steps, task)
-        return _Staged(key=key, inputs=inputs, seed=seed,
-                       init_noise_sigma=float(schedule.init_noise_sigma))
+        return self._shard_rows(_Staged(key=key, inputs=inputs, seed=seed,
+                                        init_noise_sigma=float(schedule.init_noise_sigma)))
 
     def warmup(self, height: int, width: int, steps: int = 4, batch: int = 1,
                rng: Optional[str] = None) -> Dict[str, Any]:
@@ -1082,7 +1179,8 @@ class LCMPipeline:
 
         pipelined: return once the work is queued; ``result.wait()`` blocks
         until the images and latents are on the host (ignored, as in the
-        JAX package, where a callback makes the call synchronous).
+        JAX package, where a callback makes the call synchronous, and where
+        data ranks gather their rows).
 
         On the card the request replays its bucket's CUDA graph, captured on
         the bucket's first request (or by ``warmup``); a failed capture or
@@ -1118,7 +1216,7 @@ class LCMPipeline:
             if callback is not None:
                 with self._progress_lock:
                     self._progress_registry.pop(staged.progress_token, None)
-        return res if pipelined else res.wait()
+        return self._gathered(staged, res if pipelined else res.wait())
 
     def img2img(self, prompt, init_image: np.ndarray, *, mask: Optional[np.ndarray] = None,
                 strength: float = 0.5, aesthetic_score: float = 6.0,
@@ -1141,7 +1239,7 @@ class LCMPipeline:
             negative_prompt=negative_prompt, seed=seed)
         with self._lock:
             res = self._get_compiled(staged)(self, staged)
-        return res.wait()
+        return self._gathered(staged, res.wait())
 
     def inpaint(self, prompt, init_image: np.ndarray, mask: np.ndarray, *,
                 strength: float = 1.0, **kwargs) -> GenerationResult:
@@ -1161,4 +1259,4 @@ class LCMPipeline:
     def _img2img_eager(self, prompt, init_image, **kwargs) -> GenerationResult:
         """``img2img`` without the bucket's graph (``_generate_eager``'s twin)."""
         staged = self._stage_img2img(prompt, init_image, **kwargs)
-        return _EagerProgram(staged.key)(self, staged).wait()
+        return self._gathered(staged, _EagerProgram(staged.key)(self, staged).wait())

@@ -25,7 +25,15 @@ Where it differs from the JAX server:
   device; "cpu" runs the plain versions). Without a GPU and without
   ``device="cpu"`` the startup fails and says why: there is no CPU
   fallback;
-- ``DREAMLAB_MESH`` is refused (the multi-device mesh is not ported yet);
+- ``DREAMLAB_MESH="data=D,model=M"`` runs D*M ranks, one per GPU of this
+  host (``MeshServing``): this process is rank 0 and serves HTTP, and
+  starts ranks 1..D*M-1, which replay its calls
+  (``parallel/multihost_router.py``); every mode build and disposal is
+  broadcast, so each rank holds the same workers. The model group runs on
+  NCCL, requests travel over gloo. A layout with more ranks than visible
+  GPUs is refused at startup, naming the counts; ``device="cpu"``
+  (``DREAMLAB_DEVICE=cpu``) runs gloo ranks on the CPU. The JAX server
+  drives every chip of the mesh from one process;
 - there is no compile cache to enable: each process captures its CUDA
   graphs anew.
 """
@@ -34,6 +42,8 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -50,10 +60,6 @@ from .schemas import GenerateRequest, ValidationError
 logger = logging.getLogger(__name__)
 
 STATE_KEY = "dreamlab_state"
-
-
-class NotPortedError(RuntimeError):
-    """A setting that asks for a part of the JAX package the port lacks."""
 
 
 @dataclass
@@ -78,7 +84,7 @@ class ServerConfig:
     yume_enabled: bool = False
     comfy_enabled: bool = False
     warmup: bool = True
-    # multi-chip layout (DREAMLAB_MESH), refused: the mesh is not ported
+    # multi-device layout (DREAMLAB_MESH: "data=D,model=M"), one rank per GPU
     mesh_spec: Optional[str] = None
     # modes to pre-warm into the cache at startup (DREAMLAB_PRELOAD_MODES:
     # comma list or "all"); needs DREAMLAB_MODE_CACHE > 1
@@ -141,6 +147,7 @@ class ServerState:
     watcher: Optional[object] = None
     device: Optional[str] = None  # None: the CUDA device
     dream_worker: Optional[object] = None  # yume.DreamWorker (YUME_ENABLED)
+    mesh: Optional["MeshServing"] = None  # DREAMLAB_MESH's ranks
 
     @property
     def backend(self) -> str:
@@ -633,6 +640,9 @@ def build_components(state: ServerState) -> None:
         return
     from ..engine.worker_factory import create_cuda_worker
 
+    if cfg.mesh_spec and not (cfg.modes_config and os.path.exists(cfg.modes_config)):
+        raise ValueError(f"DREAMLAB_MESH={cfg.mesh_spec!r} serves the mode system: it needs "
+                         "a modes.yaml (MODES_CONFIG)")
     if cfg.modes_config and os.path.exists(cfg.modes_config):
         from ..engine.mode_config import ModeConfigManager
         from ..engine.worker_pool import WorkerPool
@@ -642,6 +652,10 @@ def build_components(state: ServerState) -> None:
             return create_cuda_worker(worker_id, model_path, device=device, loras=loras,
                                       embeddings=embeddings, controlnet=controlnet,
                                       refiner=refiner)
+
+        if cfg.mesh_spec:
+            state.mesh = MeshServing(mesh_layout(cfg, device), device)
+            factory = state.mesh.factory
 
         state.mode_config = ModeConfigManager(cfg.modes_config)
         if state.registry is None:
@@ -726,6 +740,8 @@ async def _cleanup(app: web.Application):
                 svc.shutdown()
             except Exception:
                 logger.exception("shutdown error")
+    if state.mesh is not None:
+        state.mesh.close()
     if state.storage is not None:
         state.storage.close()
 
@@ -735,13 +751,127 @@ async def _cleanup(app: web.Application):
 # ---------------------------------------------------------------------------
 
 
-def refuse_unported(cfg: ServerConfig) -> None:
-    """Settings that need parts of the JAX package the port lacks fail the
-    start instead of being skipped."""
-    if cfg.mesh_spec:
-        raise NotPortedError(
-            f"DREAMLAB_MESH={cfg.mesh_spec!r}: serving over a multi-device mesh is not "
-            "ported to dreamlab_tpu_torch yet (ROADMAP Queue 1, item 18); unset it")
+def mesh_layout(cfg: ServerConfig, device=None) -> Optional[dict]:
+    """``DREAMLAB_MESH``'s axes, or None without one. On the card a layout
+    needs one GPU per rank: one with more ranks than this host's visible
+    GPUs is refused, naming the counts (two ranks never share a GPU)."""
+    if not cfg.mesh_spec:
+        return None
+    import torch
+
+    from ..parallel.sharding import parse_mesh_spec
+
+    axes = parse_mesh_spec(cfg.mesh_spec)
+    ranks = axes["data"] * axes["model"]
+    if torch.device(device or "cuda").type == "cuda":
+        gpus = torch.cuda.device_count()
+        if ranks > gpus:
+            raise ValueError(f"DREAMLAB_MESH={cfg.mesh_spec!r} needs {ranks} ranks, one per "
+                             f"GPU, and this host shows {gpus} GPU(s)")
+    return axes
+
+
+MESH_TIMEOUT_S = 600.0  # a collective inside a call, a rank's start, a stop
+
+
+class MeshServing:
+    """``DREAMLAB_MESH`` on this host: this process is rank 0 (it serves
+    HTTP); ranks 1..N-1 are started here, one per further device, run
+    ``serve_mesh_follower`` and replay rank 0's calls. The pool's worker
+    factory is ``factory``: each build is broadcast, so every rank builds
+    the same worker, its pipelines wrapped in ``RouterPipeline``s. A rank
+    that exits while serving stops every other one."""
+
+    def __init__(self, axes: dict, device):
+        import torch
+
+        from ..parallel import multihost
+
+        n = axes["data"] * axes["model"]
+        cuda = torch.device(device).type == "cuda"
+        devices = [f"cuda:{r}" for r in range(n)] if cuda else ["cpu"] * n
+        backend = "cpu:gloo,cuda:nccl" if cuda else "gloo"
+        store = multihost.rendezvous(n, MESH_TIMEOUT_S)
+        self.ranks = multihost.start_ranks(
+            f"{__name__}:serve_mesh_follower", range(1, n), n, store.port, backend=backend,
+            devices=devices, timeout=MESH_TIMEOUT_S, args={"axes": axes, "devices": devices})
+        try:
+            multihost.init_process(f"127.0.0.1:{store.port}", n, 0, backend=backend,
+                                   device=devices[0], timeout=MESH_TIMEOUT_S, store=store)
+            self.router = _mesh_router(axes, devices[0])
+        except Exception:
+            self.ranks.kill()
+            raise
+        self.ranks.watch()
+        self._ids = itertools.count(1)
+        logger.info("serving over a %dx%d (data, model) mesh: %d ranks on %s over %s",
+                    axes["data"], axes["model"], n, devices, backend)
+
+    def factory(self, worker_id, model_path, *, loras=None, embeddings=None,
+                controlnet=None, refiner=None):
+        """The pool's worker factory: the build runs on every rank."""
+        as_dict = lambda c: None if c is None else dataclasses.asdict(c)
+        spec = {"model": model_path, "loras": [as_dict(c) for c in loras or ()],
+                "embeddings": [as_dict(c) for c in embeddings or ()],
+                "controlnet": as_dict(controlnet), "refiner": as_dict(refiner)}
+        return self.router.build(f"w{next(self._ids)}", spec)
+
+    def close(self) -> None:
+        """Release the followers, wait for them, leave the run."""
+        import torch.distributed as dist
+
+        self.router.broadcast_message(None)
+        self.ranks.close(MESH_TIMEOUT_S)
+        dist.destroy_process_group()
+
+
+def _mesh_router(axes: dict, device: str):
+    """This rank's mesh and router, its builder building the pool's workers
+    on this rank's device."""
+    import functools
+
+    import torch
+
+    from ..parallel.multihost_router import MultihostRouter
+    from ..parallel.sharding import make_mesh
+
+    mesh = make_mesh(model=axes["model"], device_type=torch.device(device).type)
+    # the followers wait on rank 0's next call for as long as the server idles
+    router = MultihostRouter(timeout=365 * 86400.0)
+    router.builder = functools.partial(_build_mesh_worker, mesh=mesh, device=device,
+                                       tensor_parallel=axes["model"] > 1)
+    return router
+
+
+def _build_mesh_worker(router, pipe_id: str, spec: dict, *, mesh, device, tensor_parallel):
+    """One rank's worker of a build message: ``create_cuda_worker`` on the
+    rank's device and mesh, its pipelines registered with the router."""
+    from ..engine import mode_config as mc
+    from ..engine.worker_factory import create_cuda_worker
+    from ..parallel.multihost_router import RouterPipeline
+
+    of = lambda cls, d: None if d is None else cls(**d)
+    worker = create_cuda_worker(
+        0, spec["model"], device=device, mesh=mesh, tensor_parallel=tensor_parallel,
+        loras=[of(mc.LoRAConfig, d) for d in spec["loras"]],
+        embeddings=[of(mc.EmbeddingConfig, d) for d in spec["embeddings"]],
+        controlnet=of(mc.ControlNetConfig, spec["controlnet"]),
+        refiner=of(mc.RefinerConfig, spec["refiner"]))
+    worker.pipeline = RouterPipeline(worker.pipeline, router, pipe_id)
+    if worker.refiner is not None:
+        worker.refiner = RouterPipeline(worker.refiner, router, f"{pipe_id}/refiner")
+    return worker
+
+
+def serve_mesh_follower(axes: dict, devices: list) -> int:
+    """A follower rank of ``MeshServing`` (started by rank 0): build what
+    rank 0 builds, run what it runs, until it stops the run."""
+    import torch.distributed as dist
+
+    router = _mesh_router(axes, devices[dist.get_rank()])
+    served = router.serve_follower()
+    logger.info("mesh follower rank %d served %d messages", router.rank, served)
+    return 0
 
 
 def create_app(
@@ -759,7 +889,7 @@ def create_app(
     """Build the server. Components are injectable for tests; the rest is
     built at startup on ``device`` (None: the CUDA device)."""
     cfg = config or ServerConfig.from_env()
-    refuse_unported(cfg)
+    mesh_layout(cfg, device)  # a layout the devices cannot hold: refused here
     state = ServerState(
         config=cfg, pool=pool, legacy=legacy, sr=sr, storage=storage,
         mode_config=mode_config, registry=registry, device=device,

@@ -3,7 +3,9 @@
 
 Serves on the card: the card is checked first (``utils/verify_cuda.py``)
 and a process without one exits with the reason before it binds, unless
-``DREAMLAB_DEVICE=cpu`` asks for the plain versions on the CPU.
+``DREAMLAB_DEVICE=cpu`` asks for the plain versions on the CPU. With
+``DREAMLAB_MESH`` this process is the mesh's rank 0 and starts the other
+ranks itself (``serving/app.py::MeshServing``).
 
 ``--reload`` (or RELOAD=1) runs the server under a supervisor that restarts
 it whenever a source file changes: it scans ``dreamlab_tpu_torch/`` (and
@@ -90,12 +92,11 @@ def _supervise(cmd=None, roots=None, poll_s: float = 1.0) -> int:
 def serve(device=None) -> None:
     """Check the card (unless ``device`` is "cpu"), then serve until stopped."""
     from . import http
-    from .app import ServerConfig, create_app, refuse_unported
+    from .app import ServerConfig, create_app
     from .logging_config import configure_logging
 
     configure_logging()
     cfg = ServerConfig.from_env()
-    refuse_unported(cfg)
     if device != "cpu":
         from ..utils.verify_cuda import verify_cuda
 

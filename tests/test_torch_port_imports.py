@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax():
                 "invokers.workflow_store", "invokers.comfy_client", "cli",
                 "models.clip_vision", "yume", "yume.scoring", "yume.strategies",
                 "yume.dream_worker", "yume.dream_init", "yume.dream_endpoints",
-                "utils.assets", "utils.custom_detector_examples", "utils.model_detector"):
+                "utils.assets", "utils.custom_detector_examples", "utils.model_detector",
+                "parallel", "parallel.sharding", "parallel.multihost",
+                "parallel.multihost_router"):
         assert f"dreamlab_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

@@ -3,7 +3,7 @@
 comparisons): ``tests/test_server_controlnet.py``'s REST cases on both
 servers with the same ControlNets attached, the cache routes with
 ``DREAMLAB_MODE_CACHE=2``, SDXL over REST, the legacy service, and the
-port's startup: its refusal, the entry point without a GPU, and the mode
+port's startup: the entry point without a GPU, and the mode
 system and the legacy service built from a checkpoint directory on the CPU,
 with the dream worker bound to them."""
 
@@ -220,14 +220,8 @@ def test_legacy_service_multi_worker_and_pipelined(tiny):
 
 
 # ---------------------------------------------------------------------------
-# startup: the refusals, and the startup path on the CPU
+# startup without a GPU, and the startup path on the CPU
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("setting,item", [({"mesh_spec": "data=4"}, "item 18")])
-def test_unported_settings_refuse_to_start(setting, item):
-    with pytest.raises(tapp.NotPortedError, match=item):
-        tapp.create_app(tapp.ServerConfig(**setting), skip_startup=True)
 
 
 def test_without_a_gpu_the_startup_fails_and_says_why(monkeypatch):
