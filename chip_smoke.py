@@ -13,17 +13,19 @@ kills its child processes and exits 1. Phases:
    (HMMA) instructions (cuobjdump), and fails if an instance of a bf16 flash
    kernel (one head, ``flash_mma_kernel``; head group,
    ``flash_group_mma_kernel``) has none or spills;
-3. holds each kernel against its plain PyTorch version on the card (bf16:
+3. holds each kernel against its plain PyTorch version on the card (K1
+   also on q, k, v views at a packed projection's strides; bf16:
    the error beyond one bf16 rounding of the output,
    ``scripts/timing.py::bf16_check``), and a tiny fp32 pipeline on the card
    (kernels) against the same on the CPU (plain versions, which the CPU tests
    hold to the JAX package);
 4. holds each kernel against its plain version again, and times it (device
    time, ``scripts/timing.py::device_ms``), at the shapes one 512x512
-   request gives it (found by a census run on the pipeline's eager route),
-   beside its plain version, a library call and its bound; at each flash
-   shape also K1's tile sweep and the head-group kernel at the JAX package's
-   pack (main-path candidates);
+   request gives it (found by a census run on the pipeline's eager route;
+   K1's self-attention inputs at the packed projection's strides, timed
+   beside contiguous copies), beside its plain version, a library call and
+   its bound; at each flash shape also K1's tile sweep and the head-group
+   kernel at the JAX package's pack (main-path candidates);
 5. drives the main path at SD1.5's full width with seeded random bf16
    weights: captures the batch-1 and batch-8 buckets (``warmup``: one eager
    run, then the capture, each launching every kernel once per call: the
@@ -36,6 +38,14 @@ kills its child processes and exits 1. Phases:
    then the before: the same requests on the private eager route (timed,
    profiled, PNG against the graph's), and device RNG (same seed, same bytes;
    another seed, other bytes);
+5b. packing phase (the pipeline packs q/k/v at placement): one eager UNet
+   call on the unpacked view of the same weights and one on the packed
+   tree, in alternating turns (ms each; cuBLAS GEMM launches from the
+   profiler: 48 fewer packed, else the run fails); one request on the eager
+   route each way (PNGs at most 1 level apart, the share of pixels moved;
+   GEMMs a request); K1 at the packed strides (q, k, v views of a
+   ``[1, N, 3, C]`` buffer, as phase 4 checked and timed them at both
+   census shapes beside contiguous inputs); ``profile_stages`` at 512²;
 6. loader phase: writes SD1.5 at full width (``random_bundle(seed=0)``, fp16)
    as a diffusers directory and as an LDM single file in a temporary
    directory, builds a worker from each with ``create_cuda_worker`` (load
@@ -104,9 +114,10 @@ kills its child processes and exits 1. Phases:
    Styles path (counts reset before it): unstyled, A at level 3 (its first
    merge timed alone), A again (a cache hit), B, unstyled; the two unstyled
    PNGs and A's two are byte-identical, the styled graph PNG equals the
-   eager route's, the merged leaves are within one bf16 ulp of a CPU fp32
-   merge; merge, cache-hit and restore ms, touched and registered bytes, a
-   profiled styled replay (the census). img2img path (counts reset): the
+   eager route's, the live merged leaves (q/k/v: slots of the packed
+   leaves) are within one bf16 ulp of a CPU fp32 merge; merge, cache-hit
+   and restore ms, touched and registered bytes, a profiled styled replay
+   (the census). img2img path (counts reset): the
    encoder's GroupNorm shapes checked and timed, img2img at 0.5 and
    inpainting at 1.0 with a half-frame mask through ``run_img2img`` (graph =
    eager, the same seed twice, the 0.5 bucket replayed at 0.75 = eager at
@@ -145,7 +156,8 @@ kills its child processes and exits 1. Phases:
    tiles (census 280 flash at N = 4032 and 1008, 140 + 8 x 29 GroupNorm; the
    new shapes checked, K1's timed; three replays and the eager route
    byte-identical; the tiled decode's ms and peak memory beside the
-   full-frame decode's); one ``{"sdxl": {...}}`` line;
+   full-frame decode's); the packing A/B of a UNet call at 1024² (210 fewer
+   GEMMs packed) and ``profile_stages`` at 1024²; one ``{"sdxl": {...}}`` line;
 8b. ensemble phase: SDXL base and the full-width SDXL refiner (seeded
    random bf16 weights drawn on the card) in one worker, 1024², 4 steps,
    switch 0.8 (base [0, 3), refiner [3, 4)). A census on the eager route
@@ -202,6 +214,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import contextlib
 import dataclasses
 import faulthandler
 import glob
@@ -235,7 +248,7 @@ from dreamlab_tpu_torch.engine.model_registry import get_model_registry, reset_m
 from dreamlab_tpu_torch.engine.worker_factory import create_cuda_worker
 from dreamlab_tpu_torch.engine.worker_pool import CustomJob, GenerationJob, WorkerPool
 from dreamlab_tpu_torch.invokers.comfy_client import multipart_body
-from dreamlab_tpu_torch.models import layers, superres, vae
+from dreamlab_tpu_torch.models import layers, superres, unet, vae
 from dreamlab_tpu_torch.models.configs import SUPERRES
 from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
@@ -358,6 +371,13 @@ def randn(shape, dtype, seed):
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
+def packed_qkv(b, n, h, d, dtype, seed) -> tuple:
+    """q, k, v [B, N, H, D] as a packed self-attention site hands them to K1:
+    views of one [B, N, 3, H·D] projection output (token stride 3·H·D)."""
+    buf = randn((b, n, 3, h * d), dtype, seed)
+    return tuple(buf[:, :, i].view(b, n, h, d) for i in range(3))
+
+
 # ---------------------------------------------------------------------------
 # phase 2: what the build produced
 # ---------------------------------------------------------------------------
@@ -476,6 +496,11 @@ def check_kernels(errs) -> None:
             c = check_flash(q, k, v, errs, f"{dtype} {[b, n, m, h, d]}")
             log({"check": "flash", "dtype": str(dtype), "shape": [b, n, m, h, d], **c})
             del q, k, v
+        for b, n, h, d in [(1, 4096, 8, 40), (1, 1024, 8, 80), (2, 1024, 4, 64)]:
+            c = check_flash(*packed_qkv(b, n, h, d, dtype, 5), errs,
+                            f"{dtype} {[b, n, n, h, d]} packed")
+            log({"check": "flash_packed_strides", "dtype": str(dtype),
+                 "shape": [b, n, n, h, d], **c})
         torch.cuda.empty_cache()
 
         for shape in [(1, 64, 64, 320), (1, 16, 16, 2560), (1, 512, 512, 128), (2, 5, 7, 64)]:
@@ -588,17 +613,24 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
     """Each census shape: the kernel against its plain version, then timed
     (per-request totals: each shape's time times its count in ``seen``);
     without ``parts`` GroupNorm's two phases are not timed apart (K2 and K3
-    alone), only the fused call the paths run."""
+    alone), only the fused call the paths run. K1's per-shape results are
+    also kept in ``rows["flash_shapes"]``."""
     rows = {k: collections.defaultdict(float) for k in ("flash", "gn_stats", "gn_apply", "gn")}
+    rows["flash_shapes"] = []
     for (kind, shape, extra), count in sorted(seen.items()):
         if kind == "flash":
             b, n, h, d = shape
             m = extra
-            q, k, v = randn((b, n, h, d), dtype, 1), randn((b, m, h, d), dtype, 2), \
-                randn((b, m, h, d), dtype, 3)
+            # what the paths give K1: self-attention's q, k, v as views of
+            # the packed projection's output; the contiguous copies beside
+            q, k, v = packed_qkv(b, n, h, d, dtype, 1) if n == m else (
+                randn((b, n, h, d), dtype, 1), randn((b, m, h, d), dtype, 2),
+                randn((b, m, h, d), dtype, 3))
             c = check_flash(q, k, v, errs, f"census {[b, n, m, h, d]}")
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            qt, kt, vt = qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
             t = {"ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+                 "contiguous_ms": device_ms(lambda: fa.flash_attention(qc, kc, vc)),
                  "plain_ms": device_ms(lambda: fa.attention_plain(q, k, v, d ** -0.5), 3),
                  "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))}
             # the sweep's tiles where they are compiled: what the default was chosen from
@@ -613,6 +645,9 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
                  "bound_ms": bms, "bound_by": by, "tiles_ms": tiles,
                  "head_group": time_group(q, k, v), "check": c})
             _accumulate(rows["flash"], t, bms, by, count)
+            rows["flash_shapes"].append({"shape": [b, n, m, h, d], "count": count,
+                                         "packed_strides": n == m, "ms": t["ms"],
+                                         "contiguous_ms": t["contiguous_ms"], "check": c})
             continue
         groups = extra
         x = randn(shape, dtype, 4)
@@ -669,7 +704,7 @@ def time_group(q, k, v) -> dict:
 
 def _accumulate(row, t, bms, by, count) -> None:
     """Per-request totals: each shape's time times its launches per request."""
-    for key in ("ms", "plain_ms", "library_ms"):
+    for key in t:
         row[key] = None if t[key] is None or row.get(key, 0.0) is None else \
             row.get(key, 0.0) + count * t[key]
     row["bound_ms"] += count * bms
@@ -892,6 +927,10 @@ def kernel_times(prof) -> list:
 
 
 PORT_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel", "gn_cluster_kernel", "gn_apply_kernel")
+# cuBLAS's matrix kernels by name (cuBLASLt's nvjet, the xmma/cutlass GEMMs,
+# gemv for one-row products); a conv's implicit GEMM matches too, which
+# the packing A/B's difference cancels (both forwards run the same convs)
+GEMM_NAMES = ("gemm", "nvjet", "gemv")
 
 
 def profile(run) -> dict:
@@ -907,6 +946,10 @@ def profile(run) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = kernel_times(prof)
     busy_ms = sum(ms for ms, _, _ in kernels)
+    gemm_by_name = collections.Counter()
+    for _, n, name in kernels:
+        if any(g in name.lower() for g in GEMM_NAMES):
+            gemm_by_name[name[:90]] += n
     port = collections.Counter()
     for _, n, name in kernels:
         for kern in PORT_KERNELS:
@@ -915,8 +958,131 @@ def profile(run) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else None,
             "kernel_launches": sum(n for _, n, _ in kernels),
+            "gemm_launches": sum(gemm_by_name.values()), "gemm_by_name": dict(gemm_by_name),
             "port_kernels": dict(port),
             "top": [[name[:90], ms, n] for ms, n, name in kernels[:12]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the packed attention projections against the unpacked ones
+# ---------------------------------------------------------------------------
+
+PACKING_ROUNDS = 10  # alternating unpacked / packed UNet calls timed, each side (SDXL: 5)
+# cuBLAS GEMMs packing takes out of one UNet call: 3 a transformer block
+# (attn1's q, k, v -> qkv; attn2's k, v -> kv), 16 blocks at SD1.5, 70 at SDXL
+PACKED_FEWER_GEMMS = {"sd15": 3 * 16, "sdxl": 3 * 70}
+
+
+def unpacked_view(tree):
+    """The unpacked layout of a packed tree over the same storage: each slot
+    of a packed ``qkv`` / ``kv`` leaf as a linear of its own (views, no copy)."""
+    if isinstance(tree, list):
+        return [unpacked_view(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    for packed, slots in unet.PACK_SLOTS.items():
+        if packed in tree:
+            p, out = tree[packed], {k: v for k, v in tree.items() if k != packed}
+            for name, i in slots.items():
+                out[name] = {"w": p["w"][i], **({"b": p["b"][i]} if "b" in p else {})}
+            return out
+    return {k: unpacked_view(v) for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def unpacked_weights(pipe):
+    """The pipeline's UNet read through ``unpacked_view`` until the block
+    ends (the eager route reads ``unet_params`` at each call)."""
+    packed = pipe.unet_params
+    pipe.unet_params = unpacked_view(packed)
+    try:
+        yield
+    finally:
+        pipe.unet_params = packed
+
+
+def packing_ab(pipe, size: int, fewer: int, rounds: int = PACKING_ROUNDS) -> dict:
+    """One eager UNet call (batch 1, ``size``², ``profile_stages``' inputs)
+    on the unpacked view and on the packed tree of the same weights, in
+    alternating turns: ms each (host clock between syncs, medians), the
+    largest difference of their outputs, and each side's cuBLAS GEMM
+    launches in one profiled call; the packed call must launch ``fewer``
+    fewer."""
+    cfg = pipe.bundle.unet_cfg
+    _, lat, t, ctx, kw = pipe._profile_inputs(size, size, 1)
+    trees = {"unpacked": unpacked_view(pipe.unet_params), "packed": pipe.unet_params}
+    call = lambda name: unet.forward(trees[name], cfg, lat, t, ctx, **kw)
+    ms = {name: [] for name in trees}
+    with torch.inference_mode():
+        out = {name: call(name) for name in trees}  # warm
+        torch.cuda.synchronize()
+        for r in range(rounds):
+            for name in (("unpacked", "packed") if r % 2 == 0 else ("packed", "unpacked")):
+                t0 = time.perf_counter()
+                call(name)
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+        prof = {name: profile(lambda name=name: call(name)) for name in trees}
+    gemms = {name: p["gemm_launches"] for name, p in prof.items()}
+    got = gemms["unpacked"] - gemms["packed"]
+    expect(got == fewer, f"a packed {size}² UNet call launched {gemms['packed']} GEMMs against "
+                         f"the unpacked {gemms['unpacked']}: {got} fewer, expected {fewer}")
+    return {"size": size, "ms": {n: statistics.median(v) for n, v in ms.items()},
+            "ms_all": ms, "gemm_launches": gemms, "fewer_gemms": got,
+            "kernel_launches": {n: p["kernel_launches"] for n, p in prof.items()},
+            "kernel_ms": {n: p["device_busy_ms"] for n, p in prof.items()},
+            "gemm_by_name": {n: p["gemm_by_name"] for n, p in prof.items()},
+            "output_max_abs_diff": float((out["packed"] - out["unpacked"]).abs().max()),
+            "output_max_abs": float(out["unpacked"].abs().max())}
+
+
+def packing_phase(worker, rows, errs) -> dict:
+    """Phase 5b on the SD1.5 main path's worker: (a) ``packing_ab`` at 512²;
+    (b) one request on the eager route with the unpacked view and with the
+    packed tree: PNGs at most 1 level apart (the share of pixels moved),
+    each side's GEMM launches a request (the packed one 4 x 48 fewer), the
+    packed graph's PNG beside them; (c) K1 at the packed strides, as
+    ``time_kernels`` checked and timed it at both census shapes beside the
+    contiguous inputs; (d) ``profile_stages`` at 512²."""
+    pipe = worker.pipeline
+    ab = packing_ab(pipe, SIZE, PACKED_FEWER_GEMMS["sd15"])
+    spec = GenSpec("a harbour at dawn", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
+                   seed=11)
+    with unpacked_weights(pipe):
+        unpacked = eager_png(pipe, spec)
+        prof_unpacked = profile(lambda: eager_png(pipe, spec))
+    packed = eager_png(pipe, spec)
+    prof_packed = profile(lambda: eager_png(pipe, spec))
+    graph = worker.run_job_with_latents(spec)[0]
+    px = np.abs(png_pixels(packed).astype(np.int16) - png_pixels(unpacked).astype(np.int16))
+    expect(int(px.max()) <= 1, f"the packed request's PNG is {int(px.max())} levels off the "
+                               "unpacked one's")
+    gemms = {"unpacked": prof_unpacked["gemm_launches"], "packed": prof_packed["gemm_launches"]}
+    fewer = STEPS * PACKED_FEWER_GEMMS["sd15"]
+    expect(gemms["unpacked"] - gemms["packed"] == fewer,
+           f"an eager request launched {gemms} GEMMs, expected {fewer} fewer packed")
+    shapes = [r for r in rows["flash_shapes"] if r["packed_strides"]]
+    expect(sorted(r["shape"] for r in shapes) == [[1, 1024, 1024, 8, 80],
+                                                  [1, 4096, 4096, 8, 40]],
+           f"K1 was timed at the packed strides at {[r['shape'] for r in shapes]}")
+    return {"unet_call": ab,
+            "request": {"identical_bytes": packed == unpacked,
+                        "max_pixel_delta": int(px.max()),
+                        "pixels_moved": float((px > 0).mean()),
+                        "graph_png_equals_packed_eager": graph == packed,
+                        "eager_gemm_launches_per_request": gemms,
+                        "eager_kernel_launches_per_request": {
+                            "unpacked": prof_unpacked["kernel_launches"],
+                            "packed": prof_packed["kernel_launches"]},
+                        "eager_kernel_ms_per_request": {
+                            "unpacked": prof_unpacked["device_busy_ms"],
+                            "packed": prof_packed["device_busy_ms"]}},
+            "k1_packed_strides": {"shapes": shapes, "ms_per_request": rows["flash"]["ms"],
+                                  "contiguous_ms_per_request": rows["flash"]["contiguous_ms"],
+                                  "limit": TOL_BF16_P,
+                                  "max_beyond_rounding": max(r["check"]["beyond_rounding"]
+                                                             for r in shapes)},
+            "profile_stages": pipe.profile_stages(height=SIZE, width=SIZE, steps=STEPS)}
 
 
 # ---------------------------------------------------------------------------
@@ -1892,23 +2058,41 @@ def half_mask(height: int, width: int) -> np.ndarray:
 
 
 def check_merged_leaves(worker, sdef, level) -> dict:
-    """The merged leaves on the card (the cache's values) against a CPU fp32
-    merge of the same base and adapter tensors, rounded to bf16: at most one
-    bf16 ulp apart."""
+    """The live leaves with the style applied (q/k/v: slot views of the
+    packed leaves, read in place) against a CPU fp32 merge of the same base
+    and adapter tensors, rounded to bf16: at most one bf16 ulp apart, and
+    equal to the cache's values."""
     scale = sdef.strength_for_level(level)
     values = worker._merged_cache[(sdef.path, scale)][1]
     modules = worker._style_cache[sdef.path].unet
-    worst, n_ulp1 = 0.0, 0
-    for path, got in values.items():
-        down, up, alpha = modules[path]
-        want = (worker._base[path].float().cpu() + scale * (alpha / down.shape[0])
-                * (up.float().cpu() @ down.float().cpu())).to(torch.bfloat16)
-        _, exp = torch.frexp(want.float())
-        ulps = (got.float().cpu() - want.float()).abs() / torch.pow(2.0, (exp - 8).float())
-        worst = max(worst, ulps.max().item())
-        n_ulp1 += int((ulps > 0).sum())
+    params = worker.pipeline.unet_params
+    packed = {t.untyped_storage().data_ptr() for p, t in _flat(params).items()
+              if p.endswith(("qkv.w", "kv.w"))}
+    worst, n_ulp1, slots = 0.0, 0, 0
+    with worker._lock:
+        worker._apply_style(sdef.name, level)
+        try:
+            for path, cached in values.items():
+                got = lora.leaf(params, path)
+                slots += got.untyped_storage().data_ptr() in packed
+                expect(torch.equal(got, cached), f"live leaf {path} differs from the cache's")
+                down, up, alpha = modules[path]
+                want = (worker._base[path].float().cpu() + scale * (alpha / down.shape[0])
+                        * (up.float().cpu() @ down.float().cpu())).to(torch.bfloat16)
+                _, exp = torch.frexp(want.float())
+                ulps = (got.float().cpu() - want.float()).abs() / torch.pow(2.0,
+                                                                            (exp - 8).float())
+                worst = max(worst, ulps.max().item())
+                n_ulp1 += int((ulps > 0).sum())
+        finally:
+            worker._apply_style(None, 0)
     expect(worst <= 1.0, f"merged leaves {worst} bf16 ulps off the CPU fp32 merge")
-    return {"leaves": len(values), "max_ulps": worst, "values_one_ulp_off": n_ulp1}
+    want_slots = sum(p.endswith(("attn1.q", "attn1.k", "attn1.v", "attn2.k", "attn2.v"))
+                     for p in values)
+    expect(slots == want_slots, f"{slots} of the {len(values)} merged leaves are packed "
+                                f"slots, expected {want_slots}")
+    return {"leaves": len(values), "packed_slots": slots, "max_ulps": worst,
+            "values_one_ulp_off": n_ulp1}
 
 
 def styles_path(worker, styles, per_request) -> dict:
@@ -1958,7 +2142,7 @@ def styles_path(worker, styles, per_request) -> dict:
     registry = get_model_registry()
     entries = {m.name: m.hbm_bytes for m in registry.list_models()}
     touched = sum(t.numel() * t.element_size() for t in worker._base.values())
-    unet = sum(t.numel() * t.element_size() for t in _flat(pipe.unet_params).values())
+    unet_bytes = sum(t.numel() * t.element_size() for t in _flat(pipe.unet_params).values())
     expect(entries.get(next((n for n in entries if n.startswith("lora-base:")), ""))
            == touched, f"registry entries {entries} miss the base copies' {touched} bytes")
     return {"launches": launched, "first_merge_ms": first_ms, "lora_file_read_ms": read_ms,
@@ -1966,7 +2150,7 @@ def styles_path(worker, styles, per_request) -> dict:
             "cache_hit_ms": statistics.median(hit_ms), "cache_hit_ms_all": hit_ms,
             "restore_ms": statistics.median(restore_ms), "restore_ms_all": restore_ms,
             "touched_leaves": len(worker._base), "touched_leaf_bytes": touched,
-            "unet_bytes": unet, "registry_bytes": entries,
+            "unet_bytes": unet_bytes, "registry_bytes": entries,
             "registry_lora_bytes": sum(v for n, v in entries.items() if n.startswith("lora")),
             "merged_vs_cpu_fp32": merged, "styled_equals_eager": eager == a1,
             "replay_port_kernels": prof["port_kernels"],
@@ -2647,6 +2831,12 @@ def sdxl_phase(errs) -> tuple:
         "flash_ms_per_request": rows["flash"]["ms"], "gn_ms_per_request": rows["gn"]["ms"],
         "peak_memory_bytes": peak, "requests_s": requests_s,
         "vae_mid_attention": extremes["vae_mid_attention"]}}
+    t0 = time.perf_counter()
+    line["sdxl"]["packing"] = packing_ab(pipe, XL_SIZE, PACKED_FEWER_GEMMS["sdxl"], rounds=5)
+    line["sdxl"]["profile_stages"] = pipe.profile_stages(height=XL_SIZE, width=XL_SIZE,
+                                                         steps=STEPS)
+    line["sdxl"]["packing"]["path_s"] = time.perf_counter() - t0
+    end_phase("sdxl packing")
     line["sdxl"]["style"] = sdxl_style(worker, spec(1))
     end_phase("sdxl style")
     t0 = time.perf_counter()
@@ -3341,11 +3531,16 @@ def main() -> int:
     expect({k: prof8["port_kernels"].get(k, 0) for k in census_kernels} == census_kernels,
            f"a profiled batch-8 replay ran {prof8['port_kernels']}")
     device_rng = check_device_rng(pipe)
+    graph_vs_eager_s = time.perf_counter() - t0
+    end_phase("graph against eager")
+    t0 = time.perf_counter()
+    packing = packing_phase(worker, rows, errs)
+    end_phase("packing")
+    log({"packing": {**packing, "phase_s": time.perf_counter() - t0, "card": smi}})
     del pipe
     freed = delete_pipeline(worker)
     del worker
-    end_phase("graph against eager")
-    log({"graph_vs_eager_s": time.perf_counter() - t0, "card": smi, **before,
+    log({"graph_vs_eager_s": graph_vs_eager_s, "card": smi, **before,
          "device_rng": device_rng, "freed_bytes_on_delete": freed,
          "before_after_batch1": {
              "eager": {"p50_ms": before["eager_p50_ms"], "min_ms": before["eager_min_ms"],

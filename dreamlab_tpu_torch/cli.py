@@ -7,8 +7,12 @@ save PNGs (the port's writer) whose names encode the generation parameters.
         --prompt "a cat in a space suit" --steps 4 --size 512x512 --seed 42 -o out/
 
 ``--random-weights`` runs SD1.5 at full width with seeded random weights
-when no checkpoint is at hand. ``--device cpu`` runs the plain versions on
+when no checkpoint is at hand. ``--profile`` prints the per-stage times of
+``LCMPipeline.profile_stages`` (text encode, one UNet step, VAE decode, the
+denoise loop) before generating. ``--device cpu`` runs the plain versions on
 the CPU; by default the CLI runs on the CUDA device and fails without one.
+The JAX CLI's ``--no-compile-cache`` switches XLA's compilation cache and
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ def main(argv=None):
     p.add_argument("-o", "--output", default=".", help="output dir or file")
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--device", default=None, help="torch device (default: the CUDA device)")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage timings (encode/unet/decode)")
     args = p.parse_args(argv)
 
     if not args.model_dir and not args.random_weights:
@@ -67,6 +73,11 @@ def main(argv=None):
     pipe = LCMPipeline(bundle, dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
                        device=device)
     width, height = parse_size(args.size)
+
+    if args.profile:
+        stats = pipe.profile_stages(height=height, width=width, steps=args.steps)
+        for k, v in stats.items():
+            print(f"  {k}: {v:.2f}")
 
     t0 = time.time()
     res = pipe.generate(

@@ -11,8 +11,11 @@ embedding a bare vector under no ``w``, kept as it is), with numpy
 leaves (``np.asarray`` of each JAX array), and returns the same trees as
 torch tensors in the port's
 layout: conv kernels HWIO -> OIHW, linear kernels ``[in, out]`` ->
-``[out, in]``, embeddings unchanged. With it both packages compute the same
-function on the same weights, which is what the tests compare.
+``[out, in]``, embeddings unchanged. The JAX pipeline's packed attention
+projections (``attn1.qkv``, ``attn2.kv``: ``w [in, S, out]``, ``b [S, out]``)
+become the port's ``w [S, out, in]``, their biases as they are. With it
+both packages compute the same function on the same weights, which is what
+the tests compare.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 _EMBEDDINGS = ("token_embedding", "position_embedding")
+_PACKED = ("qkv", "kv")
 
 
 def _leaf(arr, *, key: str, parent: str):
@@ -30,6 +34,8 @@ def _leaf(arr, *, key: str, parent: str):
             return t.permute(3, 2, 0, 1).contiguous()
         if t.ndim == 2:  # [in, out] -> [out, in]
             return t.t().contiguous()
+        if t.ndim == 3 and parent in _PACKED:  # [in, S, out] -> [S, out, in]
+            return t.permute(1, 2, 0).contiguous()
     return t
 
 

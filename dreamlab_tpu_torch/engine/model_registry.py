@@ -15,12 +15,15 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import threading
 import time
 from typing import Dict, List, Optional
 
 import torch
+
+from ..utils.safetensors import read_header
 
 logger = logging.getLogger(__name__)
 
@@ -36,6 +39,21 @@ class LoadedModel:
 
 
 HEADROOM = 0.9  # share of the device's memory that loads may fill
+_HALF_FLOATS = ("F16", "BF16")  # 2-byte dtypes: 2 bytes short of fp32 an element
+
+
+def _fp32_bytes(path: str) -> int:
+    """A checkpoint file's bytes, with its 2-byte float tensors counted at
+    4 bytes an element where its safetensors header says so."""
+    size = os.path.getsize(path)
+    if not path.endswith(".safetensors"):
+        return size
+    try:
+        header = read_header(path)
+        return size + sum(2 * math.prod(int(d) for d in info["shape"])
+                          for info in header.values() if info["dtype"] in _HALF_FLOATS)
+    except (OSError, ValueError, KeyError, TypeError):
+        return size
 
 
 def _device_key(device=None) -> torch.device:
@@ -116,21 +134,22 @@ class ModelRegistry:
 
     @staticmethod
     def estimate_model_hbm(model_path: str, dtype_bytes: int = 2) -> int:
-        """The JAX package's estimate from the checkpoint files: their bytes
-        x1.2 (activations and fragmentation), halved when serving 2-byte
-        weights from what it takes for fp32 files. It does not see a
-        mode's graph pool (a captured bucket's activations), which the pool
-        measures instead, as the device's used bytes before and after the
-        build and its warm-up."""
-        total = 0
+        """The checkpoint files' fp32 bytes x1.2 (activations and
+        fragmentation) x ``dtype_bytes`` / 4, the JAX package's formula,
+        which takes every file for fp32. A safetensors file whose header
+        parses counts its fp16 and bf16 elements at 4 bytes (so its
+        elements x ``dtype_bytes`` x 1.2, twice the reference's estimate
+        for an fp16 file); an fp32 file, a ``.bin`` or ``.ckpt`` and an
+        unreadable header count their bytes, as in the reference. It does
+        not see a mode's graph pool (a captured bucket's activations),
+        which the pool measures instead, as the device's used bytes before
+        and after the build and its warm-up."""
         if os.path.isfile(model_path):  # single-file checkpoints
-            total = os.path.getsize(model_path)
+            paths = [model_path]
         else:
-            for root, _, files in os.walk(model_path):
-                for f in files:
-                    if f.endswith((".safetensors", ".bin", ".ckpt")):
-                        total += os.path.getsize(os.path.join(root, f))
-        return int(total * 1.2 * (dtype_bytes / 4))
+            paths = [os.path.join(root, f) for root, _, files in os.walk(model_path)
+                     for f in files if f.endswith((".safetensors", ".bin", ".ckpt"))]
+        return int(sum(map(_fp32_bytes, paths)) * 1.2 * (dtype_bytes / 4))
 
     def get_hbm_stats(self) -> Dict:
         """The ``/api/vram`` payload."""

@@ -3,9 +3,12 @@
 A merged weight is ``W' = W + scale * (alpha / rank) * up @ down``, computed
 in fp32 and cast back to the leaf's dtype, the JAX package's arithmetic.
 The port keeps torch's ``[out, in]`` layout for linears (``layers.linear``
-is ``F.linear``), so the delta is ``up @ down`` with no transpose. It never
-packs q/k/v (``models/unet.py``), so every adapter path resolves to a plain
-leaf: the JAX package's packed-slot merge has no counterpart here.
+is ``F.linear``), so the delta is ``up @ down`` with no transpose. Adapter
+paths name the unpacked projections (``...attn1.q``); in a packed tree
+(``models/unet.py::pack_attention_params``, the pipeline's layout) ``leaf``
+resolves such a path to its slot of the packed leaf, ``w[slot]``, a view
+of the packed weight, so a merge reads and writes the slot in place, as the
+JAX package's ``_merged_w_slot`` writes ``w[:, slot]``.
 
 A bucket's CUDA graph reads the weights at the addresses it captured, so a
 merge is written into the live leaves (``write_leaves``, ``copy_``), never
@@ -30,6 +33,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from .models.unet import PACK_SLOTS
 from .utils.safetensors import load_file
 
 logger = logging.getLogger(__name__)
@@ -168,11 +172,22 @@ def _tree_get(tree, path: str):
 
 
 def leaf(params, path: str) -> Optional[torch.Tensor]:
-    """The weight tensor at ``path`` of a parameter tree, or None."""
+    """The weight tensor at ``path`` of a parameter tree, or None. A q/k/v
+    path whose site is packed gives its slot of the packed weight (a view:
+    writing it writes the packed leaf)."""
     try:
         return _tree_get(params, path)["w"]
     except (KeyError, IndexError, TypeError, ValueError):
+        pass
+    site, _, name = path.rpartition(".")
+    try:
+        node = _tree_get(params, site)
+    except (KeyError, IndexError, TypeError, ValueError):
         return None
+    for packed, slots in PACK_SLOTS.items():
+        if isinstance(node, dict) and packed in node and name in slots:
+            return node[packed]["w"][slots[name]]
+    return None
 
 
 def merged_leaves(params, modules: Dict[str, Module], scale: float,
@@ -207,10 +222,11 @@ def merged_leaves(params, modules: Dict[str, Module], scale: float,
 
 
 def write_leaves(params, values: Dict[str, torch.Tensor]) -> None:
-    """Copy ``values`` into the live leaves of ``params`` (same addresses)."""
+    """Copy ``values`` into the live leaves (or packed slots) of ``params``
+    (same addresses)."""
     with torch.no_grad():
         for path, v in values.items():
-            _tree_get(params, path)["w"].copy_(v)
+            leaf(params, path).copy_(v)
 
 
 def merge_lora_into_tree(params, modules: Dict[str, Module], scale: float,

@@ -8,26 +8,33 @@ SDXL adds its ``text_time`` micro-conditioning to the time embedding; its
 10-deep transformer stacks and attention-free first level are the same
 code with other config values.
 
-q/k/v stay three projections: the JAX package packs them into one matmul
-(``pack_attention_params``) to suit the TPU's placement; whether packing
-pays on the card is not measured yet. ``forward`` takes a ControlNet's
-residual taps (``models/controlnet.py``): one per skip connection and one
-for the mid block's output.
+Attention projections come in two layouts, as in the JAX package. The
+loaders and ``init_params`` give each site separate ``q``, ``k``, ``v``
+linears; ``pack_attention_params`` (applied by the pipeline when it places
+the weights) stacks self-attention's into one ``qkv`` leaf and
+cross-attention's ``k`` and ``v`` into one ``kv`` leaf, ``{"w": [S, out,
+in], "b": [S, out]}``: torch's ``[out, in]`` behind JAX's separate stack
+axis. A packed site makes one GEMM over ``w.flatten(0, 1)`` where the
+unpacked one makes three (self) or two (cross); q, k and v are strided
+views of its output, which the flash kernel reads in place.
+``forward`` takes either layout, and a ControlNet's residual taps
+(``models/controlnet.py``): one per skip connection and one for the mid
+block's output.
 
 Tensor parallelism (``forward(..., tp=)``, ``tp`` a
 ``parallel.sharding.ModelGroup``): a model rank's tree holds its slice of
 the split leaves (``parallel.sharding.unet_tp_placements``), and the
 forward reads the split from the leaves' shapes. A site whose q/k/v rows
-are a slice runs its rank's heads only; the attention and feed-forward
-out-projections of a split site give partial products over the rank's
-input features, summed over the model group in fp32 before the bias is
-added once. A site left whole runs as without ``tp``. With ``tp=None`` the
+(of each slot, where packed) are a slice runs its rank's heads only; the
+attention and feed-forward out-projections of a split site give partial
+products over the rank's input features, summed over the model group in
+fp32 before the bias is added once. A site left whole runs as without ``tp``. With ``tp=None`` the
 forward is the single-device one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -71,20 +78,41 @@ def _row_parallel(p, x, tp):
     return y.to(x.dtype)
 
 
+def _packed_proj(p, x):
+    """S stacked projections as one linear: w [S, out, in] -> [B, N, S, out]."""
+    s, cout = p["w"].shape[:2]
+    flat = {"w": p["w"].flatten(0, 1)}
+    if "b" in p:
+        flat["b"] = p["b"].flatten()
+    y = linear(flat, x)
+    return y.view(*y.shape[:-1], s, cout)
+
+
 def _attention(p, x, context, *, heads, impl="auto", tp=None):
     """Multi-head attention over the token axis. x: [B, N, C]; context:
-    [B, M, Cc] or None for self-attention. On a model rank whose q/k/v rows
-    are a slice, its heads only, and the out-projection summed over ``tp``."""
+    [B, M, Cc] or None for self-attention. Takes the unpacked layout
+    ({"q", "k", "v", "out"}) or the packed one ({"qkv", "out"} for
+    self-attention, {"q", "kv", "out"} for cross-attention). On a model rank
+    whose q/k/v rows are a slice, its heads only, and the out-projection
+    summed over ``tp``."""
     b, n, c = x.shape
     d = c // heads
     ctx = x if context is None else context
     m = ctx.shape[1]
-    q = linear(p["q"], x)
+    if "qkv" in p:
+        qkv = _packed_proj(p["qkv"], x)  # [B, N, 3, local]
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = linear(p["q"], x)
+        if "kv" in p:
+            kv = _packed_proj(p["kv"], ctx)  # [B, M, 2, local]
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        else:
+            k, v = linear(p["k"], ctx), linear(p["v"], ctx)
     local = q.shape[-1]  # c, or this rank's slice of it
     h = local // d
-    q = q.reshape(b, n, h, d)
-    k = linear(p["k"], ctx).reshape(b, m, h, d)
-    v = linear(p["v"], ctx).reshape(b, m, h, d)
+    # views: the packed slots keep their token stride of S x local
+    q, k, v = q.view(b, n, h, d), k.view(b, m, h, d), v.view(b, m, h, d)
     out = dot_product_attention(q, k, v, impl=impl).reshape(b, n, local)
     return linear(p["out"], out) if local == c else _row_parallel(p["out"], out, tp)
 
@@ -229,6 +257,52 @@ def forward(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
 
     x = group_norm_silu(params["norm_out"], x, groups=cfg.norm_groups)
     return conv2d(params["conv_out"], x).float()
+
+
+# ---------------------------------------------------------------------------
+# packing (applied once, when the pipeline places the weights)
+# ---------------------------------------------------------------------------
+
+# the packed leaves and the slot of each projection they stack (the JAX
+# package's ``lora._PACK_SLOTS``): attn1's q/k/v -> qkv, attn2's k/v -> kv
+PACK_SLOTS: Dict[str, Dict[str, int]] = {"qkv": {"q": 0, "k": 1, "v": 2},
+                                         "kv": {"k": 0, "v": 1}}
+
+
+def _stack_attn(p, packed: str):
+    """The linears a packed leaf stacks -> {"w": [S, out, in], "b": [S, out]}
+    (the bias only where every projection has one)."""
+    names = list(PACK_SLOTS[packed])
+    out = {"w": torch.stack([p[n]["w"] for n in names])}
+    if all("b" in p[n] for n in names):
+        out["b"] = torch.stack([p[n]["b"] for n in names])
+    return out
+
+
+def pack_attention_params(params):
+    """A tree with every transformer attention's projections packed
+    (``dreamlab_tpu/models/unet.py::pack_attention_params``): attn1 {q, k, v}
+    -> {qkv}, attn2 {k, v} -> {kv} beside its q. Sites are found by key
+    name, not by shape (a tiny config can have cross_attention_dim == C).
+    Every other leaf is the input tree's own tensor; a packed site passes
+    through as it is."""
+    def pack(p, self_attn: bool):
+        if "qkv" in p or "kv" in p or "q" not in p:
+            return p
+        if self_attn:
+            return {"qkv": _stack_attn(p, "qkv"), "out": p["out"]}
+        return {"q": p["q"], "kv": _stack_attn(p, "kv"), "out": p["out"]}
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: pack(v, self_attn=k == "attn1")
+                    if k in ("attn1", "attn2") and isinstance(v, dict) else walk(v)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(params)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,10 @@ one process (rank) per device, so the same two axes are written out:
   whole on every rank, as JAX replicates it.
 - **model axis**: Megatron-style head parallelism inside each transformer
   block (``unet_tp_placements``, ``shard_params``): a model rank holds its
-  heads' q/k/v rows and the matching input columns of the attention and
-  feed-forward out-projections, and ``ModelGroup.all_reduce`` sums their
-  partial products (``models/unet.py``).
+  heads' q/k/v rows (of every slot of a packed ``qkv`` / ``kv`` leaf) and
+  the matching input columns of the attention and feed-forward
+  out-projections, and ``ModelGroup.all_reduce`` sums their partial
+  products (``models/unet.py``).
 
 Rank r sits at (r // model, r % model) of the ("data", "model") mesh, where
 JAX's row-major reshape puts device r.
@@ -102,9 +103,12 @@ def gather_rows(x: np.ndarray, mesh: DeviceMesh) -> np.ndarray:
 # the model axis: tensor parallelism for the UNet
 # ---------------------------------------------------------------------------
 
-REPLICATE, SPLIT_OUT, SPLIT_IN = None, 0, 1  # a leaf's placement: the dim a rank slices
+# a leaf's placement: the dim a rank slices (SPLIT_SLOTS: the output rows of
+# each slot of a packed [S, out, in] weight or [S, out] bias)
+REPLICATE, SPLIT_OUT, SPLIT_IN, SPLIT_SLOTS = None, 0, 1, 1
 
 _COL = re.compile(r"(^|\.)attn[12]\.[qkv]\.[wb]$")  # q/k/v [out, in]: split the output rows
+_PACKED = re.compile(r"(^|\.)(attn1\.qkv|attn2\.kv)\.[wb]$")  # packed q/k/v
 _ROW = re.compile(r"(^|\.)(attn[12]\.out|ff_out)\.w$")  # out-projections: split the inputs
 _SITE = re.compile(r"^(down\.(\d+)|mid|up\.(\d+))\..*\.attn[12]\.")
 
@@ -117,8 +121,12 @@ def _placement_for_path(path: str) -> Optional[int]:
     the all-reduce. GEGLU in-projections stay whole: their output is split
     in half for the gate, which does not align with feature shards. Convs,
     norms and embeddings stay whole: channel-sharded convs would all-gather
-    at every GroupNorm. The JAX package's packed ``attn1.qkv`` / ``attn2.kv``
-    rules have no counterpart: the port does not pack its projections."""
+    at every GroupNorm. The packed ``attn1.qkv`` / ``attn2.kv`` leaves
+    split the output features of every slot (dim 1 of ``[S, out, in]`` and
+    of ``[S, out]``, JAX's ``P(None, None, "model")`` on ``[in, S, out]``),
+    so each rank's q/k/v slices stay local after the packed GEMM."""
+    if _PACKED.search(path):
+        return SPLIT_SLOTS
     if _COL.search(path):
         return SPLIT_OUT
     if _ROW.search(path):
@@ -155,8 +163,8 @@ def _placements(tree, model: int, cfg=None, prefix: str = ""):
 
 def unet_tp_placements(unet_params, mesh: DeviceMesh, cfg=None):
     """A tree of the UNet tree's shape: each leaf's placement, the dim a
-    model rank slices (``SPLIT_OUT`` = 0, ``SPLIT_IN`` = 1) or
-    ``REPLICATE`` (None). A dim the model axis does not divide stays
+    model rank slices (``SPLIT_OUT`` = 0, ``SPLIT_IN`` = ``SPLIT_SLOTS`` =
+    1) or ``REPLICATE`` (None). A dim the model axis does not divide stays
     whole; with the UNet's config, so do attention sites whose heads it
     does not divide."""
     return _placements(unet_params, axis_size(mesh, "model"), cfg)

@@ -551,7 +551,11 @@ class LCMPipeline:
         deterministic_backends()
         self.text_params = _place_params(bundle.text_params, dtype, self.device)
         self.text_params_2 = _place_params(bundle.text_params_2, dtype, self.device)
-        self.unet_params = _place_params(bundle.unet_params, dtype, self.device)
+        # q/k/v packed once placed (unet.pack_attention_params, as the JAX
+        # package packs at placement): before any bucket is captured, since
+        # a graph reads the weights at their addresses
+        self.unet_params = unet.pack_attention_params(
+            _place_params(bundle.unet_params, dtype, self.device))
         # this rank's UNet slices ({leaf path: the dim it splits, or None}) and
         # its model group; a whole UNet and None on one device
         self._unet_split: Dict[str, Optional[int]] = {}
@@ -595,8 +599,17 @@ class LCMPipeline:
     def unet_leaf_slice(self, path: str, value: torch.Tensor) -> torch.Tensor:
         """This rank's slice of a whole ``value`` of the UNet leaf at ``path``
         (the value itself on one device and where the leaf is whole): what a
-        LoRA merge writes into a tensor-parallel rank's leaf."""
+        LoRA merge writes into a tensor-parallel rank's leaf. ``path`` may
+        name a projection packed into a slot (``...attn1.q.w``): a slot of
+        ``[S, out, in]`` is ``[out, in]``, split one dim lower."""
         split = self._unet_split.get(path)
+        parts = path.rsplit(".", 2)
+        if split is None and len(parts) == 3:
+            site, name, field = parts
+            for packed, slots in unet.PACK_SLOTS.items():
+                whole = self._unet_split.get(f"{site}.{packed}.{field}")
+                if name in slots and whole is not None:
+                    split = whole - 1
         return value if split is None else shard_leaf(value, split, self.mesh)
 
     def _data_rows(self, bsz: int) -> Optional[slice]:
@@ -649,9 +662,11 @@ class LCMPipeline:
 
     def set_controlnet(self, params, cfg: Optional[UNetConfig]) -> None:
         """Attach a ControlNet (``models/controlnet.py``'s tree and its
-        UNetConfig), or detach it with ``params=None``. The net is checked
-        against the pipeline's UNet first (tap count, tap width, cross
-        attention width). A ctrl bucket's graph reads the leaves it
+        UNetConfig), or detach it with ``params=None``. Its attention
+        projections are packed as the UNet's are
+        (``unet.pack_attention_params``), and it is checked against the
+        pipeline's UNet (tap count, tap width, cross attention width). A
+        ctrl bucket's graph reads the leaves it
         captured: a net of the attached net's config and shapes is written
         into those leaves (``copy_``), so the graphs serve it as they are;
         another net, or a detach, drops the ctrl buckets and their graphs."""
@@ -659,6 +674,7 @@ class LCMPipeline:
             self._drop_ctrl_buckets()
             self.controlnet_params = self.controlnet_cfg = None
             return
+        params = unet.pack_attention_params(params)
         ucfg = self.bundle.unet_cfg
         n_skips = controlnet.skip_count(ucfg)
         taps = params.get("zero_down", ())
@@ -1136,6 +1152,63 @@ class LCMPipeline:
                "reserved_bytes": getattr(program, "reserved_bytes", None)}
         logger.info("warmup %dx%dx%d steps=%d in %.1fs", batch, height, width, steps,
                     out["seconds"])
+        return out
+
+    def _profile_inputs(self, height: int, width: int, batch: int):
+        """``profile_stages``' inputs on the device, seeded as the JAX
+        package's: token ids [B, 77], fp32 latents [B, h, w, C], timesteps
+        999, a random context [B, 77, Cc] and zero conditioning (the
+        w-embedding, or SDXL's pooled embedding and ids) for the UNet."""
+        b, dev = self.bundle, self.device
+        rs = np.random.RandomState(0)
+        h_lat, w_lat = height // self.vae_scale, width // self.vae_scale
+        ids = torch.from_numpy(np.asarray(b.tokenizer(["profile"] * batch), np.int64)).to(dev)
+        lat = torch.from_numpy(rs.randn(batch, h_lat, w_lat, self.latent_channels)
+                               .astype(np.float32)).to(dev)
+        ctx = torch.from_numpy(rs.randn(batch, 77, b.unet_cfg.cross_attention_dim)
+                               .astype(np.float32)).to(dev)
+        t = torch.full((batch,), 999, dtype=torch.int32, device=dev)
+        kw = {}
+        if b.unet_cfg.time_cond_proj_dim:
+            kw["timestep_cond"] = torch.zeros((batch, b.unet_cfg.time_cond_proj_dim),
+                                              device=dev)
+        if b.unet_cfg.addition_embed_type:
+            n_ids = self._micro_cond_ids()
+            pooled_dim = (b.unet_cfg.projection_class_embeddings_input_dim
+                          - n_ids * b.unet_cfg.addition_time_embed_dim)
+            kw["added_text_embeds"] = torch.zeros((batch, pooled_dim), device=dev)
+            kw["added_time_ids"] = torch.zeros((batch, n_ids), device=dev)
+        return ids, lat, t, ctx, kw
+
+    def profile_stages(self, *, height: int = 512, width: int = 512, steps: int = 4,
+                       batch: int = 1, iters: int = 5) -> Dict[str, float]:
+        """Per-stage wall-clock breakdown in ms (the JAX package's
+        ``profile_stages``, the reference's built-in profiler contract): the
+        first tower's text encode, one UNet call and the VAE decode, each
+        run eagerly on seeded inputs, once to warm up, then ``iters`` times
+        between two device synchronizations; ``denoise_loop_ms`` is
+        ``unet_step_ms`` x ``steps``. A request runs the three inside one
+        captured graph: this is for diagnosis, not serving."""
+        b, dev = self.bundle, self.device
+        ids, lat, t, ctx, kw = self._profile_inputs(height, width, batch)
+        stages = {
+            "text_encode": lambda: clip_text.encode_text(self.text_params, ids, b.text_cfg)[0],
+            "unet_step": lambda: unet.forward(self.unet_params, b.unet_cfg, lat, t, ctx, **kw,
+                                              tp=self._tp),
+            "vae_decode": lambda: vae.decode(self.vae_params, b.vae_cfg, lat),
+        }
+        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+        out: Dict[str, float] = {}
+        with self._lock, torch.inference_mode(), device_lock(dev).shared():
+            for name, fn in stages.items():
+                fn()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                sync()
+                out[name + "_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+        out["denoise_loop_ms"] = out["unet_step_ms"] * steps
         return out
 
     def generate(self, prompt, *, height: int = 512, width: int = 512,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import math
 import mmap
+import os
 import struct
 from typing import Dict, Optional
 
@@ -33,6 +34,9 @@ def _read_header(f, path: str):
     if len(raw) < 8:
         raise ValueError(f"{path} is not a safetensors file (shorter than 8 bytes)")
     (n,) = struct.unpack("<Q", raw)
+    if n > os.fstat(f.fileno()).st_size - 8:
+        raise ValueError(f"{path} is not a safetensors file (header of {n} bytes runs "
+                         "past the end)")
     try:
         header = json.loads(f.read(n))
     except (UnicodeDecodeError, json.JSONDecodeError) as e:
@@ -42,13 +46,17 @@ def _read_header(f, path: str):
     return header, n
 
 
-def read_shapes(path: str) -> Dict[str, list]:
-    """{name: shape} of every tensor of the file, from its header alone (no
-    tensor data is read)."""
+def read_header(path: str) -> Dict[str, dict]:
+    """{name: {"dtype", "shape", "data_offsets"}} of every tensor of the
+    file, from its header alone (no tensor data is read)."""
     with open(path, "rb") as f:
         header, _ = _read_header(f, path)
-    return {name: [int(s) for s in info["shape"]] for name, info in header.items()
-            if name != "__metadata__"}
+    return {name: info for name, info in header.items() if name != "__metadata__"}
+
+
+def read_shapes(path: str) -> Dict[str, list]:
+    """{name: shape} of every tensor of the file, from its header alone."""
+    return {name: [int(s) for s in info["shape"]] for name, info in read_header(path).items()}
 
 
 def load_file(path: str) -> Dict[str, torch.Tensor]:

@@ -196,6 +196,33 @@ def test_flash_reads_strided_views(cuda):
     _assert_close(got, want, None, TOL_BF16_P)
 
 
+def test_a_packed_unet_hands_the_kernel_its_projection_views(cuda, monkeypatch):
+    """A packed self-attention site gives K1 q, k and v as views of its one
+    projection output (token stride 3 x C, no copy), and the packed UNet on
+    the card equals its unpacked layout on the same weights (fp32)."""
+    from dreamlab_tpu_torch import testing
+    from dreamlab_tpu_torch.models import unet
+
+    bundle = testing.random_bundle(tiny=True, seed=3, device="cuda")
+    cfg, params = bundle.unet_cfg, bundle.unet_params
+    seen, launch = [], fa.launch
+
+    def spy(q, k, v, **kw):
+        seen.append((q.stride(1), q.shape[2] * q.shape[3], k.data_ptr() - q.data_ptr(),
+                     v.data_ptr() - k.data_ptr()))
+        return launch(q, k, v, **kw)
+
+    x = _randn((1, 32, 32, 4), torch.float32, cuda, 1)  # 1024 tokens at level 0
+    t = torch.tensor([999], dtype=torch.int32, device=cuda)
+    ctx = _randn((1, 77, cfg.cross_attention_dim), torch.float32, cuda, 2)
+    w = torch.zeros((1, cfg.time_cond_proj_dim), device=cuda)
+    want = unet.forward(params, cfg, x, t, ctx, timestep_cond=w)
+    monkeypatch.setattr(fa, "launch", spy)
+    got = unet.forward(unet.pack_attention_params(params), cfg, x, t, ctx, timestep_cond=w)
+    assert seen and all(stride == 3 * c and dk == dv == c * 4 for stride, c, dk, dv in seen)
+    _assert_close(got, want, TOL[torch.float32], None)
+
+
 def test_flash_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 128, 2, 160), device=cuda)
     with pytest.raises(ValueError):

@@ -181,11 +181,15 @@ def test_mode_loras_give_the_reference_weights(sdxl_dir, tmp_path, towers):
                        device="cpu")
     before = {k: v.clone() for k, v in _leaves(port.text_params_2).items()}
     twf.apply_mode_loras(port, [entry])
+    # the port merged into the placed UNet's packed slots: held to the
+    # reference's merged UNet packed as its pipeline packs it
+    ref.unet_params = junet.pack_attention_params(ref.unet_params)
     for name in ("unet_params", "text_params"):
-        for (k, got), (_, w) in zip(_leaves(getattr(port, name)).items(),
-                                    _leaves(convert.from_jax_numpy(
-                                        _np_tree(getattr(ref, name)))).items()):
-            np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=1e-6,
+        want = _leaves(convert.from_jax_numpy(_np_tree(getattr(ref, name))))
+        got = _leaves(getattr(port, name))
+        assert list(got) == list(want), name
+        for (k, g), w in zip(got.items(), want.values()):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-6,
                                        err_msg=f"{name}{k}")
     for k, v in _leaves(port.text_params_2).items():
         assert torch.equal(v, before[k]), k

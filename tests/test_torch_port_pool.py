@@ -744,6 +744,39 @@ def test_registry_accounting_and_estimate(tmp_path):
     assert ModelRegistry.estimate_model_hbm(str(tmp_path / "model")) == 600
 
 
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+def test_half_float_safetensors_are_estimated_from_their_header(tmp_path, dtype_bytes):
+    """A deliberate divergence (ROADMAP Queue 3): the reference takes every
+    file for fp32, so it halves an fp16 directory. The port counts its
+    elements from the safetensors header at 4 bytes, so an fp16 or bf16
+    file gets elements x dtype_bytes x 1.2 (plus its header's bytes at the
+    reference's rate), twice the reference's payload term; an fp32 file,
+    a .bin and an unparsable header still get the reference's estimate."""
+    g = torch.Generator().manual_seed(0)
+    tensors = {"a": torch.randn((64, 48), generator=g), "b": torch.randn((300,), generator=g)}
+    elements = 64 * 48 + 300
+    half = tmp_path / "fp16"
+    (half / "unet").mkdir(parents=True)
+    save_file({k: v.half() for k, v in tensors.items()}, str(half / "unet" / "w.safetensors"))
+    save_file({"c": torch.zeros((10, 10), dtype=torch.bfloat16)},
+              str(half / "te.safetensors"))
+    elements += 100
+    full = str(tmp_path / "fp32.safetensors")
+    save_file(tensors, full)
+    (tmp_path / "weights.bin").write_bytes(b"x" * 4096)
+    est = lambda p: ModelRegistry.estimate_model_hbm(str(p), dtype_bytes)
+    jax_est = lambda p: JaxRegistry.estimate_model_hbm(str(p), dtype_bytes)
+    headers = sum(os.path.getsize(p) for p in (half / "unet" / "w.safetensors",
+                                               half / "te.safetensors")) - 2 * elements
+    rate = 1.2 * dtype_bytes / 4
+    assert est(half) == int((4 * elements + headers) * rate)
+    # the payload's term: the reference's x2 (its header term as it was)
+    assert abs((est(half) - headers * rate) - elements * dtype_bytes * 1.2) <= 1
+    assert abs((est(half) - headers * rate) - 2 * (jax_est(half) - headers * rate)) <= 3
+    for path in (full, tmp_path / "weights.bin"):
+        assert est(path) == jax_est(path)
+
+
 def _mode_file_cases(tmp_path):
     (tmp_path / "ckpt").mkdir()
     (tmp_path / "ckpt" / "w.safetensors").write_bytes(b"x")

@@ -17,7 +17,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from dreamlab_tpu_torch import testing
+from dreamlab_tpu_torch import lora, testing
 from dreamlab_tpu_torch.engine.base import GenSpec
 from dreamlab_tpu_torch.engine.worker_pool import CustomJob
 from dreamlab_tpu_torch.parallel.multihost_router import RouterPipeline
@@ -146,7 +146,7 @@ def test_the_server_splits_the_unet_over_a_model_mesh_on_the_cpu(tmp_path, monke
         try:
             pipe = app[tapp.STATE_KEY].pool.worker.pipeline
             if spec:
-                q = pipe.unet_params["mid"]["attention"]["blocks"][0]["attn1"]["q"]["w"]
+                q = lora.leaf(pipe.unet_params, "mid.attention.blocks.0.attn1.q")  # a slot
                 assert q.shape[0] * 2 == q.shape[1]  # rank 0 holds half the heads' rows
             pngs[spec] = [fetch(server.port, "POST", "/generate",
                                 *as_json({**GEN, "seed": s})).body for s in (7, 8)]

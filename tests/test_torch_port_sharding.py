@@ -26,10 +26,12 @@ import pytest
 import torch
 
 from dreamlab_tpu.loader import load_pipeline as jax_load_pipeline
+from dreamlab_tpu.models import unet as junet
 from dreamlab_tpu.parallel import sharding as jsharding
 from dreamlab_tpu.pipeline import LCMPipeline as JaxPipeline
 from dreamlab_tpu.testing import random_bundle as jax_random_bundle
 from dreamlab_tpu_torch import loader, lora, testing
+from dreamlab_tpu_torch.models import unet as tunet
 from dreamlab_tpu_torch.parallel import sharding
 from dreamlab_tpu_torch.parallel.multihost import run_ranks
 from dreamlab_tpu_torch.pipeline import LCMPipeline, _flat
@@ -75,11 +77,16 @@ def _model_mesh(model: int, rank: int = 0):
     return types.SimpleNamespace(shape=(1, model), get_local_rank=lambda axis: rank)
 
 
-def _jax_to_port(spec) -> object:
-    """JAX's spec on an ``[in, out]`` leaf -> the port's placement on ``[out, in]``."""
+def _jax_to_port(spec, path: str = "") -> object:
+    """JAX's spec on an ``[in, out]`` leaf -> the port's placement on ``[out, in]``;
+    on a packed ``[in, S, out]`` weight or ``[S, out]`` bias -> the port's
+    ``[S, out, in]`` / ``[S, out]``."""
     spec = tuple(spec)
     if spec in ((), (None,), (None, None)):
         return sharding.REPLICATE
+    if re.search(r"attn1\.qkv\.|attn2\.kv\.", path):
+        assert spec in ((None, None, "model"), (None, "model")), (path, spec)
+        return sharding.SPLIT_SLOTS  # each slot's output features
     if spec in ((None, "model"), ("model",)):  # output features
         return sharding.SPLIT_OUT
     if spec == ("model", None):  # input features
@@ -87,22 +94,28 @@ def _jax_to_port(spec) -> object:
     raise AssertionError(f"no port rule for JAX spec {spec}")
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
 @pytest.mark.parametrize("arch", ["sd15", "sdxl"])
-def test_every_unet_leaf_is_placed_as_jax_specs_it(arch):
+def test_every_unet_leaf_is_placed_as_jax_specs_it(arch, packed):
     # the port's tiny SDXL has a mid block two layers deep (testing.random_bundle),
-    # so the port's tree holds every path of JAX's and more
-    jax_paths = {p for p, _ in jsharding._leaf_paths(jax_random_bundle(arch, tiny=True)
-                                                     .unet_params)}
+    # so the port's tree holds every path of JAX's and more; packed: both
+    # packages' pack_attention_params (the pipelines' layout)
+    pack = tunet.pack_attention_params if packed else (lambda t: t)
+    jpack = junet.pack_attention_params if packed else (lambda t: t)
+    jax_paths = {p for p, _ in jsharding._leaf_paths(jpack(jax_random_bundle(arch, tiny=True)
+                                                           .unet_params))}
     tb = testing.random_bundle(arch, tiny=True)
-    leaves = _flat(tb.unet_params)
+    params = pack(tb.unet_params)
+    leaves = _flat(params)
     assert jax_paths <= set(leaves)
-    got = _flat(sharding.unet_tp_placements(tb.unet_params, _model_mesh(2), tb.unet_cfg))
-    assert got == {p: _jax_to_port(jsharding._tp_spec_for_path(p, leaf.ndim))
+    got = _flat(sharding.unet_tp_placements(params, _model_mesh(2), tb.unet_cfg))
+    assert got == {p: _jax_to_port(jsharding._tp_spec_for_path(p, leaf.ndim), p)
                    for p, leaf in leaves.items()}
     placed = {p: s for p, s in got.items() if s is not None}
-    blocks = len([p for p in got if p.endswith("attn1.q.w")])
-    # q, k, v of both attention sites, their out-projections and ff_out
-    assert blocks and len(placed) == 9 * blocks
+    blocks = len([p for p in got if p.endswith("attn1.out.w")])
+    # q, k, v of both attention sites (packed: qkv, attn2's q and kv), their
+    # out-projections and ff_out
+    assert blocks and len(placed) == (6 if packed else 9) * blocks
 
 
 def test_sites_whose_heads_the_model_axis_does_not_divide_stay_whole():

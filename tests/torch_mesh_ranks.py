@@ -90,8 +90,9 @@ def tensor_parallel(ckpt: str, out: str, lora_path: str) -> int:
     kw = dict(SIZE, seed=3, batch=2)
     if pipe.bundle.arch == "sdxl":  # classic CFG on the doubled batch
         kw.update(guidance_scale=7.5, negative_prompt="bad")
-    res = {"q_rows": np.asarray(pipe.unet_params["mid"]["attention"]["blocks"][0]["attn1"]
-                                ["q"]["w"].shape)}
+    # the q slot of the mid block's packed qkv leaf
+    res = {"q_rows": np.asarray(lora.leaf(pipe.unet_params,
+                                          "mid.attention.blocks.0.attn1.q").shape)}
     if dist.get_rank() == 0:
         for name, path in (("images", "-"), ("styled", lora_path), ("restored", None)):
             if path != "-":
