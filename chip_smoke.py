@@ -10,9 +10,11 @@ kills its child processes and exits 1. Phases:
 1. prints the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
 2. builds the CUDA kernels from ``dreamlab_tpu_torch/csrc`` (nvcc, sm_90a),
    prints each kernel's registers and spills (ptxas) and its tensor-core
-   (HMMA) instructions (cuobjdump), and fails if an instance of a bf16 flash
-   kernel (one head, ``flash_mma_kernel``; head group,
-   ``flash_group_mma_kernel``) has none or spills;
+   instructions (cuobjdump: HMMA for mma.sync, HGMMA for wgmma), and fails
+   if an instance of a bf16 flash kernel (K1's ``flash_wgmma_kernel`` with
+   HGMMA; the mma.sync ``flash_mma_kernel`` and head-group
+   ``flash_group_mma_kernel`` with HMMA) has none or spills, if ptxas
+   ignored a ``setmaxnreg`` (C7508) or serialized K1's wgmmas;
 3. holds each kernel against its plain PyTorch version on the card (K1
    also on q, k, v views at a packed projection's strides; bf16:
    the error beyond one bf16 rounding of the output,
@@ -24,7 +26,11 @@ kills its child processes and exits 1. Phases:
    request gives it (found by a census run on the pipeline's eager route;
    K1's self-attention inputs at the packed projection's strides, timed
    beside contiguous copies), beside its plain version, a library call and
-   its bound; at each flash shape also K1's tile sweep and the head-group
+   its bound; K1 (the ``"wgmma"`` route at every census shape,
+   ``ops/flash_attention.py::route``) beside the mma.sync kernel it took
+   over from on the same inputs in alternating rounds (``mma_sync_ms``:
+   no census shape slower, a request's K1 time at most 0.8x at SD1.5 and
+   0.6x at SDXL 1024²); at each flash shape also K1's tile sweep and the head-group
    kernel at the JAX package's pack (main-path candidates);
 5. drives the main path at SD1.5's full width with seeded random bf16
    weights: captures the batch-1 and batch-8 buckets (``warmup``: one eager
@@ -260,8 +266,8 @@ from dreamlab_tpu_torch.serving import app as server_app
 from dreamlab_tpu_torch.serving.http import ServerThread
 from dreamlab_tpu_torch.serving.superres_service import (SuperResService, SuperResWorker,
                                                          decode_rgb, load_sr_params)
-from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
-                                               max_err)
+from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, compare,
+                                               device_ms, max_err)
 from dreamlab_tpu_torch.testing import (CONTROLNET_COND_CHANNELS, SD15_CONTROLNET,
                                         cast_params, cast_tree, random_bundle,
                                         random_controlnet,
@@ -412,8 +418,9 @@ def ptxas_summary(build_log: str) -> list:
     return [{**r, "kernel": names[r["kernel"]]} for r in rows]
 
 
-def sass_hmma(so) -> dict:
-    """{kernel: HMMA (tensor-core) instructions} in the built library's SASS."""
+def sass_tensor_ops(so) -> tuple:
+    """({kernel: HMMA instructions}, {kernel: HGMMA instructions}) in the
+    built library's SASS: mma.sync and wgmma on the tensor cores."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
@@ -422,29 +429,51 @@ def sass_hmma(so) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += bool(re.search(r"\bHMMA\b", line))
+            counts[name][1] += bool(re.search(r"\bHGMMA\b", line))
     names = _demangle(counts)
-    return {names[k]: n for k, n in sorted(counts.items())}
+    return ({names[k]: n[0] for k, n in sorted(counts.items())},
+            {names[k]: n[1] for k, n in sorted(counts.items())})
 
 
-MMA_KERNELS = ("flash_mma_kernel", "flash_group_mma_kernel")  # the bf16 flash kernels
+# the bf16 flash kernels: {name: the tensor-core instruction each instance must hold}
+TENSOR_CORE_KERNELS = {"flash_mma_kernel": "HMMA", "flash_group_mma_kernel": "HMMA",
+                       "flash_wgmma_kernel": "HGMMA"}
 
 
 def check_build(so) -> None:
-    ptxas = ptxas_summary(_build.build_log())
+    """Registers, spills and tensor-core instructions of every kernel; each
+    bf16 flash kernel's instances hold their tensor-core instruction and
+    spill nothing, and ptxas honoured every setmaxnreg (no C7508) and
+    serialized no wgmma (C7510-C7515: the build still runs, slower)."""
+    build_log = _build.build_log()
+    ptxas = ptxas_summary(build_log)
     for row in ptxas:
         log({"ptxas": row})
-    hmma = sass_hmma(so)
-    log({"sass_hmma": hmma})
-    for kern in MMA_KERNELS:
-        mma = {k: n for k, n in hmma.items() if kern in k}
-        expect(len(mma) > 0 and all(n > 0 for n in mma.values()),
-               f"an instance of {kern} contains no HMMA: {mma}")
+    hmma, hgmma = sass_tensor_ops(so)
+    log({"sass_hmma": hmma, "sass_hgmma": hgmma})
+    for kern, op in TENSOR_CORE_KERNELS.items():
+        found = {k: n for k, n in (hgmma if op == "HGMMA" else hmma).items() if kern in k}
+        expect(len(found) > 0 and all(n > 0 for n in found.values()),
+               f"an instance of {kern} contains no {op}: {found}")
         spills = [r for r in ptxas if kern in r["kernel"]
                   and r.get("spill_stores", 0) + r.get("spill_loads", 0) > 0]
         expect(not spills, f"instances of {kern} spill: {spills}")
+    ignored = [line for line in build_log.splitlines() if "C7508" in line]
+    expect(not ignored, f"ptxas ignored setmaxnreg: {ignored}")
+    serialized = [line for line in build_log.splitlines()
+                  if re.search(r"C751[0-5]", line) and FLASH_KERNEL in line]
+    log({"wgmma_serialized": serialized})
+    regs = {r["kernel"]: r.get("registers") for r in ptxas}
+    for inst in fa.wgmma_instances():
+        name = f"{FLASH_KERNEL}<{inst['head_dim_padded']}, {inst['consumers']}>"
+        log({"wgmma_instance": name, **inst, "ptxas_registers": regs.get(name)})
+        expect(regs.get(name) == inst["entry_registers"],
+               f"{name}: ptxas gave {regs.get(name)} registers, setmaxnreg was sized for "
+               f"{inst['entry_registers']}")
+    expect(not serialized, f"ptxas serialized the wgmmas of {FLASH_KERNEL}: {serialized}")
 
 
 # ---------------------------------------------------------------------------
@@ -454,17 +483,21 @@ def check_build(so) -> None:
 
 def check_flash(q, k, v, errs, what) -> dict:
     """One flash call against the plain fp32 version on the same inputs."""
+    route = fa.route(q, k, v)
+    before = dict(fa.ROUTE_LAUNCHES)
     got = fa.flash_attention(q, k, v)
+    expect(fa.ROUTE_LAUNCHES[route] == before[route] + 1,
+           f"flash {what}: the {route} route's counter did not count the launch")
     want = fa.attention_plain(q.float(), k.float(), v.float(), q.shape[-1] ** -0.5)
     if q.dtype == torch.bfloat16:
-        c = bf16_check(got, want, TOL_BF16_P)
+        c = {**bf16_check(got, want, TOL_BF16_P), "route": route}
         expect(c["beyond_rounding"] <= c["limit"], f"flash {what}: {c}")
         errs["flash"] = max(errs["flash"], c["max_abs_err"])
         errs["flash_beyond"] = max(errs["flash_beyond"], c["beyond_rounding"])
         return c
     err = max_err(got, want)
     expect(err <= TOL_FP32_FLASH, f"flash fp32 {what}: err {err}")
-    return {"max_abs_err": err, "limit": TOL_FP32_FLASH}
+    return {"max_abs_err": err, "limit": TOL_FP32_FLASH, "route": route}
 
 
 def check_gn(x, gamma, beta, groups, silu, errs, what) -> dict:
@@ -629,8 +662,15 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
             c = check_flash(q, k, v, errs, f"census {[b, n, m, h, d]}")
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
             qt, kt, vt = qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-            t = {"ms": device_ms(lambda: fa.flash_attention(q, k, v)),
-                 "contiguous_ms": device_ms(lambda: fa.flash_attention(qc, kc, vc)),
+            expect(fa.route(q, k, v) == fa.route(qc, kc, vc) == "wgmma",
+                   f"census {[b, n, m, h, d]}: routes {fa.route(q, k, v)}, "
+                   f"{fa.route(qc, kc, vc)}")
+            # the wgmma kernel beside the mma.sync kernel it took over from, on
+            # the same inputs in alternating rounds
+            ab, _ = compare({"ms": lambda: fa.flash_attention(q, k, v),
+                             "mma_sync_ms": lambda: fa.launch(q, k, v, scale=d ** -0.5,
+                                                              kernel="mma")})
+            t = {**ab, "contiguous_ms": device_ms(lambda: fa.flash_attention(qc, kc, vc)),
                  "plain_ms": device_ms(lambda: fa.attention_plain(q, k, v, d ** -0.5), 3),
                  "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))}
             # the sweep's tiles where they are compiled: what the default was chosen from
@@ -644,9 +684,14 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
             log({"time": "flash", "shape": [b, n, m, h, d], "count": count, **t,
                  "bound_ms": bms, "bound_by": by, "tiles_ms": tiles,
                  "head_group": time_group(q, k, v), "check": c})
+            expect(t["ms"] <= t["mma_sync_ms"],
+                   f"census {[b, n, m, h, d]}: K1 {t['ms']} ms, slower than the mma.sync "
+                   f"kernel's {t['mma_sync_ms']} ms")
             _accumulate(rows["flash"], t, bms, by, count)
             rows["flash_shapes"].append({"shape": [b, n, m, h, d], "count": count,
                                          "packed_strides": n == m, "ms": t["ms"],
+                                         "mma_sync_ms": t["mma_sync_ms"],
+                                         "consumers": fa.wgmma_consumers(n, h, d),
                                          "contiguous_ms": t["contiguous_ms"], "check": c})
             continue
         groups = extra
@@ -684,6 +729,20 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
             _accumulate(rows["gn_apply"], t3, *b3, count)
         _accumulate(rows["gn"], tc, *bc, count)
     return rows
+
+
+# K1's time a request on the wgmma kernel, at most this share of the mma.sync
+# kernel's on the same inputs in the same run
+K1_SPEEDUP = {"sd15": 0.8, "sdxl": 0.6}
+
+
+def expect_k1_speedup(rows, limit: float, what: str) -> None:
+    r = rows["flash"]
+    log({"k1_per_request": what, "ms": r["ms"], "mma_sync_ms": r["mma_sync_ms"],
+         "share": r["ms"] / r["mma_sync_ms"], "limit": limit, "library_ms": r["library_ms"]})
+    expect(r["ms"] <= limit * r["mma_sync_ms"],
+           f"{what}: K1 {r['ms']} ms a request, above {limit} x the mma.sync kernel's "
+           f"{r['mma_sync_ms']} ms")
 
 
 def time_group(q, k, v) -> dict:
@@ -751,6 +810,7 @@ def host_cpu() -> str:
 
 def reset_counts() -> None:
     fa.LAUNCHES = 0
+    fa.ROUTE_LAUNCHES.update(dict.fromkeys(fa.ROUTES, 0))
     gn.LAUNCHES = 0
     gn.STATS_LAUNCHES = 0
     gn.APPLY_LAUNCHES = 0
@@ -758,7 +818,10 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     """Launches per kernel wrapper; "gn" counts every GroupNorm kernel launch,
-    so gn == gn_stats == gn_apply means one launch per fused call."""
+    so gn == gn_stats == gn_apply means one launch per fused call. Every K1
+    launch since the last reset must have taken the wgmma route."""
+    expect(fa.ROUTE_LAUNCHES == {"wgmma": fa.LAUNCHES, "mma": 0, "scalar": 0},
+           f"K1's {fa.LAUNCHES} launches since the reset took the routes {fa.ROUTE_LAUNCHES}")
     return {"flash": fa.LAUNCHES, "gn": gn.LAUNCHES, "gn_stats": gn.STATS_LAUNCHES,
             "gn_apply": gn.APPLY_LAUNCHES}
 
@@ -926,7 +989,19 @@ def kernel_times(prof) -> list:
     return sorted(out, reverse=True)
 
 
-PORT_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel", "gn_cluster_kernel", "gn_apply_kernel")
+# K1's kernel on every served path (csrc/flash_wgmma.cu) and the mma.sync
+# kernel it took over from (csrc/flash_attention.cu), which no path may run
+FLASH_KERNEL = "flash_wgmma_kernel"
+MMA_FLASH_KERNEL = "flash_mma_kernel"
+PORT_KERNELS = (FLASH_KERNEL, MMA_FLASH_KERNEL, "flash_fwd_kernel", "gn_cluster_kernel",
+                "gn_apply_kernel")
+
+
+def census_kernels(flash: int, gn: int) -> dict:
+    """The profiler's launches by kernel name that a run of ``flash`` K1 and
+    ``gn`` GroupNorm calls must show: K1 all on FLASH_KERNEL, none on the
+    mma.sync kernel."""
+    return {FLASH_KERNEL: flash, MMA_FLASH_KERNEL: 0, "gn_cluster_kernel": gn}
 # cuBLAS's matrix kernels by name (cuBLASLt's nvjet, the xmma/cutlass GEMMs,
 # gemv for one-row products); a conv's implicit GEMM matches too, which
 # the packing A/B's difference cancels (both forwards run the same convs)
@@ -1001,13 +1076,32 @@ def unpacked_weights(pipe):
         pipe.unet_params = packed
 
 
+# A profiler window now and then loses or gains kernel events (on the H100:
+# an SDXL UNet call's window once 22 GEMMs short, once 2 over, beside windows
+# that agreed); a launch count is read from two windows that agree
+AGREED_PROFILES = 4
+
+
+def agreed_profile(run) -> dict:
+    """``profile(run)`` taken until two calls agree on their GEMM and kernel
+    launches, at most AGREED_PROFILES calls: the first of the agreeing pair
+    (else the first call), with every call's (GEMM, kernel) launches."""
+    profs = []
+    for _ in range(AGREED_PROFILES):
+        profs.append(profile(run))
+        counts = [(p["gemm_launches"], p["kernel_launches"]) for p in profs]
+        if counts.count(counts[-1]) > 1:
+            return {**profs[counts.index(counts[-1])], "launches_seen": counts}
+    return {**profs[0], "launches_seen": counts}
+
+
 def packing_ab(pipe, size: int, fewer: int, rounds: int = PACKING_ROUNDS) -> dict:
     """One eager UNet call (batch 1, ``size``², ``profile_stages``' inputs)
     on the unpacked view and on the packed tree of the same weights, in
     alternating turns: ms each (host clock between syncs, medians), the
     largest difference of their outputs, and each side's cuBLAS GEMM
-    launches in one profiled call; the packed call must launch ``fewer``
-    fewer."""
+    launches in a profiled call (``agreed_profile``); the packed call must
+    launch ``fewer`` fewer."""
     cfg = pipe.bundle.unet_cfg
     _, lat, t, ctx, kw = pipe._profile_inputs(size, size, 1)
     trees = {"unpacked": unpacked_view(pipe.unet_params), "packed": pipe.unet_params}
@@ -1022,18 +1116,22 @@ def packing_ab(pipe, size: int, fewer: int, rounds: int = PACKING_ROUNDS) -> dic
                 call(name)
                 torch.cuda.synchronize()
                 ms[name].append(1e3 * (time.perf_counter() - t0))
-        prof = {name: profile(lambda name=name: call(name)) for name in trees}
+        prof = {name: agreed_profile(lambda name=name: call(name)) for name in trees}
     gemms = {name: p["gemm_launches"] for name, p in prof.items()}
     got = gemms["unpacked"] - gemms["packed"]
+    res = {"size": size, "ms": {n: statistics.median(v) for n, v in ms.items()},
+           "ms_all": ms, "gemm_launches": gemms, "fewer_gemms": got,
+           "kernel_launches": {n: p["kernel_launches"] for n, p in prof.items()},
+           "kernel_ms": {n: p["device_busy_ms"] for n, p in prof.items()},
+           "gemm_by_name": {n: p["gemm_by_name"] for n, p in prof.items()},
+           "launches_seen": {n: p["launches_seen"] for n, p in prof.items()},
+           "output_max_abs_diff": float((out["packed"] - out["unpacked"]).abs().max()),
+           "output_max_abs": float(out["unpacked"].abs().max())}
+    if got != fewer:
+        log({"packing_ab_gemms_off": res})  # which names moved, before the run stops
     expect(got == fewer, f"a packed {size}² UNet call launched {gemms['packed']} GEMMs against "
                          f"the unpacked {gemms['unpacked']}: {got} fewer, expected {fewer}")
-    return {"size": size, "ms": {n: statistics.median(v) for n, v in ms.items()},
-            "ms_all": ms, "gemm_launches": gemms, "fewer_gemms": got,
-            "kernel_launches": {n: p["kernel_launches"] for n, p in prof.items()},
-            "kernel_ms": {n: p["device_busy_ms"] for n, p in prof.items()},
-            "gemm_by_name": {n: p["gemm_by_name"] for n, p in prof.items()},
-            "output_max_abs_diff": float((out["packed"] - out["unpacked"]).abs().max()),
-            "output_max_abs": float(out["unpacked"].abs().max())}
+    return res
 
 
 def packing_phase(worker, rows, errs) -> dict:
@@ -1316,11 +1414,9 @@ def pool_path(root: str, ckpt: str, mode_lora: str, onnx: str, per_request) -> t
             k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernel_launches")}}
         census = profile(lambda: pool.submit_job(GenerationJob(specs[0])).result(
             timeout=POOL_TIMEOUT_S))
-        ran = {k: census["port_kernels"].get(k, 0) for k in ("flash_mma_kernel",
-                                                             "gn_cluster_kernel")}
-        expect(ran == {"flash_mma_kernel": per_request["flash"],
-                       "gn_cluster_kernel": per_request["gn"]},
-               f"a pool-dispatched request ran {census['port_kernels']}")
+        want_k = census_kernels(per_request["flash"], per_request["gn"])
+        ran = {k: census["port_kernels"].get(k, 0) for k in want_k}
+        expect(ran == want_k, f"a pool-dispatched request ran {census['port_kernels']}")
         out["census_profile"] = {"port_kernels": census["port_kernels"],
                                  "device_busy_ms": census["device_busy_ms"],
                                  "wall_ms": census["wall_ms"]}
@@ -1687,10 +1783,9 @@ def server_path(root: str, ckpt: str, mode_lora: str, onnx: str, per_request) ->
             k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernel_launches")}}
         mark("concurrent")
         census_req = profile(lambda: http_call(port, "POST", "/generate", gen(1200)))
-        ran_k = {k: census_req["port_kernels"].get(k, 0) for k in ("flash_mma_kernel",
-                                                                   "gn_cluster_kernel")}
-        checks["http_request_ran_the_census"] = ran_k == {
-            "flash_mma_kernel": per_request["flash"], "gn_cluster_kernel": per_request["gn"]}
+        want_k = census_kernels(per_request["flash"], per_request["gn"])
+        ran_k = {k: census_req["port_kernels"].get(k, 0) for k in want_k}
+        checks["http_request_ran_the_census"] = ran_k == want_k
         out["census_profile"] = {"port_kernels": census_req["port_kernels"],
                                  "device_busy_ms": census_req["device_busy_ms"],
                                  "wall_ms": census_req["wall_ms"]}
@@ -2001,12 +2096,10 @@ def yume_phase(root: str, rows, errs) -> tuple:
         prof_cand = profile(lambda: dream._generate_candidates(YUME_SEEDS, YUME_PROMPT))
         prof_render = profile(lambda: state.pool.worker.run_job(GenSpec(
             YUME_PROMPT, size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS, seed=7)))
-        ran = lambda prof: {k: prof["port_kernels"].get(k, 0)
-                            for k in ("flash_mma_kernel", "gn_cluster_kernel")}
-        expect(ran(prof_cand) == {"flash_mma_kernel": 0,
-                                  "gn_cluster_kernel": YUME_CANDIDATE_PER_BATCH["gn"]},
+        ran = lambda prof: {k: prof["port_kernels"].get(k, 0) for k in census_kernels(0, 0)}
+        expect(ran(prof_cand) == census_kernels(0, YUME_CANDIDATE_PER_BATCH["gn"]),
                f"a profiled candidate batch ran {prof_cand['port_kernels']}")
-        expect(ran(prof_render) == {"flash_mma_kernel": 40, "gn_cluster_kernel": 209},
+        expect(ran(prof_render) == census_kernels(40, 209),
                f"a profiled render ran {prof_render['port_kernels']}")
         out["census_candidate_batch"] = per_batch
         out["profile_candidate_batch"] = {k: prof_cand[k] for k in (
@@ -2135,10 +2228,9 @@ def styles_path(worker, styles, per_request) -> dict:
     expect(eager == a1, "the styled graph PNG differs from the eager route's")
     merged = check_merged_leaves(worker, styles["A"], 3)
     prof = profile(lambda: png(spec("A", 3)))
-    census_kernels = {"flash_mma_kernel": per_request["flash"],
-                      "gn_cluster_kernel": per_request["gn"]}
-    expect({k: prof["port_kernels"].get(k, 0) for k in census_kernels} == census_kernels,
-           f"a styled replay ran {prof['port_kernels']}, expected {census_kernels}")
+    want_kernels = census_kernels(per_request["flash"], per_request["gn"])
+    expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
+           f"a styled replay ran {prof['port_kernels']}, expected {want_kernels}")
     registry = get_model_registry()
     entries = {m.name: m.hbm_bytes for m in registry.list_models()}
     touched = sum(t.numel() * t.element_size() for t in worker._base.values())
@@ -2219,8 +2311,7 @@ def img2img_path(worker, per_request, txt_seen, errs) -> tuple:
     latency = latencies(strength=0.5)
     inpaint_latency = latencies(strength=1.0, mask=mask)
     prof = profile(lambda: worker.run_img2img(spec, image, strength=0.5))
-    want_kernels = {"flash_mma_kernel": i2i_request["flash"],
-                    "gn_cluster_kernel": i2i_request["gn"]}
+    want_kernels = census_kernels(i2i_request["flash"], i2i_request["gn"])
     expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
            f"a profiled img2img replay ran {prof['port_kernels']}, expected {want_kernels}")
     expect(counts() == launched, f"img2img replays went through the wrappers: {counts()}")
@@ -2360,8 +2451,7 @@ def controlnet_path(worker, bundle, net_b, hint, per_request) -> tuple:
     lat = times_of({"controlnet": lambda: png(spec(seed=seed + 1)),
                     "plain": lambda: png(spec(seed=seed + 1, control_image=None))}, CN_SAMPLES)
     prof = profile(lambda: png(spec()))
-    want_kernels = {"flash_mma_kernel": cn_request["flash"],
-                    "gn_cluster_kernel": cn_request["gn"]}
+    want_kernels = census_kernels(cn_request["flash"], cn_request["gn"])
     expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
            f"a profiled ControlNet replay ran {prof['port_kernels']}, expected {want_kernels}")
     # replays go through no wrapper; the eager route above did, once
@@ -2694,7 +2784,7 @@ def sdxl_tiles(worker, txt_seen) -> tuple:
            "1344x768: the replays or the eager route gave other bytes")
     expect(png_pixels(pngs[0]).shape == (height, width, 3), "1344x768 PNG shape")
     prof = profile(lambda: worker.run_job_with_latents(spec))
-    want_kernels = {"flash_mma_kernel": want["flash"], "gn_cluster_kernel": want["gn"]}
+    want_kernels = census_kernels(want["flash"], want["gn"])
     expect({k: prof["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
            f"a profiled 1344x768 replay ran {prof['port_kernels']}, expected {want_kernels}")
     z = torch.from_numpy(res.latents).cuda() / pipe.bundle.vae_cfg.scaling_factor
@@ -2742,6 +2832,7 @@ def sdxl_phase(errs) -> tuple:
 
     t0 = time.perf_counter()
     rows = time_kernels(seen, torch.bfloat16, errs, parts=False)
+    expect_k1_speedup(rows, K1_SPEEDUP["sdxl"], "SDXL 1024²")
     extremes = check_sdxl_extremes(errs)
     log({"sdxl_timing_s": time.perf_counter() - t0, "per_request_ms": rows, **extremes})
     end_phase("sdxl kernel checks")
@@ -2804,8 +2895,7 @@ def sdxl_phase(errs) -> tuple:
     end_phase("sdxl requests")
 
     before = graph_vs_eager(worker, {"none": spec(1), "cfg": cfg_spec}, XL_EAGER_SAMPLES,
-                            {"flash_mma_kernel": XL_PER_REQUEST["flash"],
-                             "gn_cluster_kernel": XL_PER_REQUEST["gn"]})
+                            census_kernels(XL_PER_REQUEST["flash"], XL_PER_REQUEST["gn"]))
     prof, prof_eager = before["profile_graph"], before["profile_eager"]
     log({"profile_sdxl_batch1": prof, "profile_sdxl_eager": prof_eager})
     buckets = bucket_stats(pipe)
@@ -2934,8 +3024,7 @@ def ensemble_phase() -> tuple:
                and handoff.state_device.dtype == torch.float32)
     expect(on_card, "the base segment's carry is not an fp32 card tensor")
     prof = profile(lambda: worker.run_job_with_latents(spec(seed)))
-    want_kernels = {"flash_mma_kernel": ens_request["flash"],
-                    "gn_cluster_kernel": ens_request["gn"]}
+    want_kernels = census_kernels(ens_request["flash"], ens_request["gn"])
     expect({c: prof["port_kernels"].get(c, 0) for c in want_kernels} == want_kernels,
            f"a profiled ensemble replay ran {prof['port_kernels']}, expected {want_kernels}")
     buckets = {"base": bucket_stats(base), "refiner": bucket_stats(refiner)}
@@ -3134,7 +3223,7 @@ def mesh_rank(root: str) -> int:
         rp.shutdown()
     else:
         out["served"] = rp.serve_follower()
-    out["dp_launches"] = counts()
+    out["dp_launches"], out["dp_routes"] = counts(), dict(fa.ROUTE_LAUNCHES)
     out["dp_buckets"] = [[str(k), type(p) is _GraphProgram, getattr(p, "capture_s", None)]
                          for k, p in dp._compiled.items()]
     out["dp_s"] = time.perf_counter() - t0
@@ -3145,7 +3234,7 @@ def mesh_rank(root: str) -> int:
     counted = tp._tp = _CountedGroup(tp._tp)
     reset_counts()
     seen = census(tp)
-    out["tp_launches"] = counts()
+    out["tp_launches"], out["tp_routes"] = counts(), dict(fa.ROUTE_LAUNCHES)
     out["tp_census"] = [[k[0], list(k[1]), k[2], c] for k, c in sorted(seen.items())]
     out["tp_all_reduces"], out["tp_all_reduce_ms"] = counted.calls, counted.ms
     tp._tp = counted.group
@@ -3238,6 +3327,10 @@ def mesh_phase(rows, errs, smi: str) -> tuple:
                f"rank {r['rank']}: a gloo model group must run its buckets eagerly")
         expect(r["tp_launches"]["flash"] == 40 and r["tp_launches"]["gn"] == 209,
                f"rank {r['rank']}'s tensor-parallel request launched {r['tp_launches']}")
+        for axis in ("dp", "tp"):
+            want = {"wgmma": r[f"{axis}_launches"]["flash"], "mma": 0, "scalar": 0}
+            expect(r[f"{axis}_routes"] == want,
+                   f"rank {r['rank']}'s {axis} K1 launches took the routes {r[f'{axis}_routes']}")
         expect(r["tp_all_reduces"] == MESH_TP_ALL_REDUCES,
                f"rank {r['rank']} ran {r['tp_all_reduces']} all-reduces a request, expected "
                f"{MESH_TP_ALL_REDUCES}")
@@ -3343,6 +3436,7 @@ def check_probes_fp32() -> None:
 
 def reset_probe_counts() -> None:
     fa.LAUNCHES = 0
+    fa.ROUTE_LAUNCHES.update(dict.fromkeys(fa.ROUTES, 0))
     fg.LAUNCHES = 0
     ab_transpose_free.LAUNCHES = 0
     ab_attention_layout.LAUNCHES = 0
@@ -3353,7 +3447,8 @@ def probe_counts() -> dict:
     return {"flash_4d": ab_transpose_free.LAUNCHES,
             "flash_folded": ab_attention_layout.LAUNCHES,
             "flash_packed3": ab_head_packing.LAUNCHES,
-            "flash_group (K4 + K6)": fg.LAUNCHES, "flash (K1 beside them)": fa.LAUNCHES}
+            "flash_group (K4 + K6)": fg.LAUNCHES, "flash (K1 beside them)": fa.LAUNCHES,
+            "flash routes (K1 beside them)": dict(fa.ROUTE_LAUNCHES)}
 
 
 def probes(errs) -> tuple:
@@ -3407,6 +3502,15 @@ def probes(errs) -> tuple:
         "flash_packed3": ("dreamlab_tpu_torch/csrc/flash_group.cu",
                           "scripts/ab_head_packing.py:134"),
     }
+    # K5 is K1's kernel on the folded view: the route it took, and the
+    # mma.sync kernel beside it on the same inputs in alternating rounds
+    q5, k5, v5 = (x.unsqueeze(2) for x in k5_inputs(bf16, al.LANES))
+    k5_ab, _ = compare({"wgmma": lambda: fa.launch(q5, k5, v5, scale=al.D ** -0.5),
+                        "mma_sync": lambda: fa.launch(q5, k5, v5, scale=al.D ** -0.5,
+                                                      kernel="mma")})
+    k5_route = {"flash_route": fa.route(q5, k5, v5), "mma_sync_ms": k5_ab["mma_sync"],
+                "wgmma_ms_beside_mma_sync": k5_ab["wgmma"]}
+    del q5, k5, v5
     entries = []
     for name, (ms, plain_ms, library_ms, (bms, by)) in rows.items():
         entries.append({
@@ -3416,7 +3520,7 @@ def probes(errs) -> tuple:
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "beyond_rounding_limit": TOL_BF16_P, "max_beyond_rounding": errs[f"{name}_beyond"],
             # K5 at lane 128 computes 3.2x the work of d = 40: both bounds
-            **({"bound_ms_d40": k5_bound(al.D)[0]}
+            **({"bound_ms_d40": k5_bound(al.D)[0], **k5_route}
                if name == "flash_folded" else {})})
     line = {"probes": {**runs, "launches": launches, "probes_s": time.perf_counter() - t0}}
     return entries, line
@@ -3437,7 +3541,7 @@ def kernel_entries(rows, launches, errs, suffix="",
     captures, of all its buckets); ``launches_per_request`` counts those of
     one request at the shapes the entry's times add up."""
     sources = {
-        "flash": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
+        "flash": ("dreamlab_tpu_torch/csrc/flash_wgmma.cu",
                   "dreamlab_tpu/ops/flash_attention.py:52"),
         "gn_stats": ("dreamlab_tpu_torch/csrc/groupnorm.cu",
                      "dreamlab_tpu/ops/groupnorm.py:30"),
@@ -3463,6 +3567,11 @@ def kernel_entries(rows, launches, errs, suffix="",
             "library_ms": r["library_ms"],
             **({"beyond_rounding_limit": limits[name][0],
                 "max_beyond_rounding": limits[name][1]} if name in limits else {}),
+            # K1: the route every launch of the path took (counts() holds it to
+            # wgmma) and the mma.sync kernel's time on the same inputs, same run
+            **({"flash_route": "wgmma", "flash_kernel": FLASH_KERNEL,
+                "source_mma_sync": "dreamlab_tpu_torch/csrc/flash_attention.cu",
+                "mma_sync_ms": r["mma_sync_ms"]} if name == "flash" else {}),
         })
     return kernels
 
@@ -3507,6 +3616,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = time_kernels(seen, torch.bfloat16, errs)
     log({"timing_s": time.perf_counter() - t0, "per_request_ms": rows})
+    expect_k1_speedup(rows, K1_SPEEDUP["sd15"], "SD1.5 512²")
 
     t0 = time.perf_counter()
     result = main_path(worker, per_request)
@@ -3517,9 +3627,8 @@ def main() -> int:
     spec = GenSpec("a mountain at sunset", size=f"{SIZE}x{SIZE}", num_inference_steps=STEPS,
                    seed=5)
     t0 = time.perf_counter()
-    census_kernels = {"flash_mma_kernel": per_request["flash"],
-                      "gn_cluster_kernel": per_request["gn"]}
-    before = graph_vs_eager(worker, {"batch1": spec}, EAGER_SAMPLES, census_kernels)
+    want_kernels = census_kernels(per_request["flash"], per_request["gn"])
+    before = graph_vs_eager(worker, {"batch1": spec}, EAGER_SAMPLES, want_kernels)
     prof1, prof_eager = before.pop("profile_graph"), before.pop("profile_eager")
     log({"profile_batch1": prof1, "profile_eager_batch1": prof_eager})
     # the card's own record: the fused kernel ran, the separate apply kernel did not
@@ -3528,7 +3637,7 @@ def main() -> int:
     prof8 = profile(lambda: worker.run_jobs([spec] * 8))
     log({"profile_batch8": prof8})
     # the kernels take the batch: one launch per call at batch 8 as at batch 1
-    expect({k: prof8["port_kernels"].get(k, 0) for k in census_kernels} == census_kernels,
+    expect({k: prof8["port_kernels"].get(k, 0) for k in want_kernels} == want_kernels,
            f"a profiled batch-8 replay ran {prof8['port_kernels']}")
     device_rng = check_device_rng(pipe)
     graph_vs_eager_s = time.perf_counter() - t0

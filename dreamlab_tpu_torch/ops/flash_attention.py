@@ -1,13 +1,26 @@
-"""Flash attention: the hand-written CUDA kernel and its plain PyTorch version.
+"""Flash attention: the hand-written CUDA kernels and their plain PyTorch version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``dreamlab_tpu/ops/flash_attention.py::_flash_kernel``. It reads
-``[B, N, H, D]`` tensors in place through their strides and masks the ragged
-key edge itself, so the TPU wrapper's head packing, block table and fold
-transposes have no counterpart here. bf16 runs both products on the tensor
-cores (``mma.sync``, P rounded to bf16 before the PV product as the Pallas
-kernel rounds it); fp32 runs a scalar kernel, since the tensor cores would
-take fp32 as TF32.
+The kernels replace the Pallas TPU kernel
+``dreamlab_tpu/ops/flash_attention.py::_flash_kernel``. They read
+``[B, N, H, D]`` tensors in place through their strides and mask the ragged
+edges themselves, so the TPU wrapper's head packing, block table and fold
+transposes have no counterpart here. ``route(q, k, v)`` picks one before any
+launch, from the inputs' dtype, alignment, strides and head dim:
+
+- ``"wgmma"`` (``csrc/flash_wgmma.cu``, ``flash_wgmma_kernel``): bf16 that
+  TMA can describe, i.e. 16-byte aligned bases, batch, token and head strides
+  positive multiples of 8 elements, d % 8 == 0 and d <= 128. Hopper's wgmma
+  and TMA with a producer warp; every shape the pipelines give the kernel
+  takes this route, packed projection views included.
+- ``"mma"`` (``csrc/flash_attention.cu``, ``flash_mma_kernel``): other bf16
+  inputs (d = 20, odd head dims, unaligned views) and the probes' tile sweep
+  (``block_q`` / ``block_k`` != 0). ``mma.sync`` on the tensor cores.
+- ``"scalar"`` (``flash_fwd_kernel``): fp32, one query row per thread, since
+  the tensor cores would take fp32 as TF32.
+
+Both bf16 kernels round P to bf16 before the PV product as the Pallas
+kernel does. The route is a dispatch, not a fallback: a refused or failed
+launch raises and is never run again on another route.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; for CPU tensors it computes
@@ -42,11 +55,28 @@ SWEEP_BLOCK_Q = (64, 128)
 SWEEP_BLOCK_K = (16, 32, 64)
 SWEEP_MAX_HEAD_DIM = 48
 
-# kernel launches since the last reset (the main path's proof that it ran)
+# kernel launches since the last reset (the main path's proof that it ran),
+# in all and by route
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "scalar": 0}
+ROUTES = tuple(ROUTE_LAUNCHES)
+
+# the wgmma kernel's tiles (csrc/flash_wgmma.cu): 64 query rows per consumer
+# warpgroup, one to three consumers a block (wgmma_consumers), keys in tiles of 64
+WGMMA_ROWS = 64
+WGMMA_BLOCK_K = 64
+H100_SMS = 132
+# C entry points' own return codes (csrc/flash_wgmma.cu)
+_WGMMA_ERRORS = {-1: "inputs the kernel does not take", -2: "the driver refused a tensor map",
+                 -3: "registers at entry differ from what setmaxnreg was sized for"}
 
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
+)
+# dl_flash_wgmma: device, q, k, v, o, b, n, m, h, d, consumers, 9 strides, scale, stream
+_WGMMA_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -69,6 +99,47 @@ def _tiles(block_q: int, block_k: int):
         raise ValueError(f"tiles block_q={block_q}, block_k={block_k}: block_q must be "
                          f"0 or one of {SWEEP_BLOCK_Q}, block_k 0 or one of {SWEEP_BLOCK_K}")
     return block_q or DEFAULT_BLOCK_Q, block_k or DEFAULT_BLOCK_K
+
+
+def route(q, k, v, block_q: int = 0, block_k: int = 0) -> str:
+    """The kernel that takes these inputs: "wgmma", "mma" or "scalar" (see
+    the module docstring). A pure function of dtype, tiles, head dim, base
+    alignment and strides; it launches nothing and reads no device."""
+    if q.dtype == torch.float32:
+        return "scalar"
+    if block_q or block_k or q.shape[-1] % 8 or q.shape[-1] > MAX_HEAD_DIM:
+        return "mma"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
+            return "mma"
+    return "wgmma"
+
+
+def wgmma_consumers(n: int, h: int, d: int, sms: int = H100_SMS) -> int:
+    """Consumer warpgroups per block of the wgmma kernel (64 query rows
+    each, one block an SM with two or three, two blocks an SM with one),
+    from N, H and d only, never from the batch: a batch row runs the tiles
+    of its solo call, and a tile's arithmetic does not depend on the choice.
+
+    Blocks that share K and V among more rows move fewer bytes, so two
+    consumers are the rule. One where 128-row blocks would leave half the
+    SMs idle or more at batch 1 (SD1.5's [1024, 8, 80]: 128 blocks instead
+    of 64; not the mesh's [4096, 4, 40], whose 128 such blocks fill all
+    but 4 SMs and ran twice as fast as 256 of one consumer); three
+    (d <= 64) where 192-row blocks take no more rows per SM in all, at
+    waves of ``sms`` blocks (SDXL's [1024, 20, 64]: 120 blocks in one wave
+    instead of 160, whose last 28 make a second; its [4096, 10, 64]: two
+    waves of 192 rows against three of 128, a tie that three win on the
+    H100 by sharing K and V among more rows)."""
+    def blocks(c):
+        return -(-n // (WGMMA_ROWS * c)) * h
+
+    if d > 80:
+        return 2
+    if blocks(2) <= sms // 2:
+        return 1
+    rows = {c: -(-blocks(c) // sms) * c for c in (2, 3)}
+    return 3 if d <= 64 and rows[3] <= rows[2] else 2
 
 
 def attention_plain(q, k, v, scale: float):
@@ -103,9 +174,45 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
-def launch(q, k, v, *, scale: float, block_q: int = 0, block_k: int = 0):
-    """Run the kernel on CUDA tensors [B, N, H, D] x [B, M, H, D]; count nothing.
+def _launch_wgmma(q, k, v, scale: float):
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    fn = _build.kernel("dl_flash_wgmma", _WGMMA_ARGTYPES)
+    rc = fn(
+        q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, n, k.shape[1], h, d, wgmma_consumers(n, h, d, sms),
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        float(scale), _build.stream_of(q),
+    )
+    if rc in _WGMMA_ERRORS:
+        raise RuntimeError(f"dl_flash_wgmma: {_WGMMA_ERRORS[rc]} (code {rc})")
+    _build.check(rc, "dl_flash_wgmma")
+    return out
 
+
+_INSTANCE_FIELDS = ("head_dim_padded", "consumers", "threads", "blocks_per_sm", "entry_registers",
+                    "consumer_registers", "block_k", "stages", "smem_bytes", "pipelined")
+
+
+def wgmma_instances() -> list:
+    """The built instances of the wgmma kernel and their launch shape (from
+    the library: ``dl_flash_wgmma_instances``), one dict each."""
+    fn = _build.kernel("dl_flash_wgmma_instances", [ctypes.c_void_p, ctypes.c_int])
+    rows = (ctypes.c_int * (10 * 32))()
+    n = fn(ctypes.cast(rows, ctypes.c_void_p), 32)
+    return [dict(zip(_INSTANCE_FIELDS, rows[10 * i:10 * i + 10])) for i in range(n)]
+
+
+def launch(q, k, v, *, scale: float, block_q: int = 0, block_k: int = 0,
+           kernel: Optional[str] = None):
+    """Run a kernel on CUDA tensors [B, N, H, D] x [B, M, H, D]; count nothing.
+
+    ``kernel`` None runs the one ``route`` picks. A same-run A/B may name
+    "mma" for any bf16 input (``chip_smoke.py`` times the mma.sync kernel
+    beside the wgmma one); "wgmma" only where ``route`` gives it.
     ``flash_attention`` and the layout probe ``scripts/ab_attention_layout.py``
     call this and keep their own launch counts. Raises on anything the
     kernel does not take, tiles included.
@@ -114,6 +221,12 @@ def launch(q, k, v, *, scale: float, block_q: int = 0, block_k: int = 0):
     b, n, h, d = q.shape
     m = k.shape[1]
     tiles = _tiles(block_q, block_k)
+    picked = route(q, k, v, block_q, block_k)
+    if kernel is not None and kernel != picked and not (
+            kernel == "mma" and picked == "wgmma"):
+        raise ValueError(f"kernel {kernel!r} does not take these inputs (route: {picked!r})")
+    if (kernel or picked) == "wgmma":
+        return _launch_wgmma(q, k, v, scale)
     if tiles == (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K):
         tiles = (0, 0)
     elif q.dtype != torch.bfloat16 or d > SWEEP_MAX_HEAD_DIM:
@@ -137,9 +250,10 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, block_q: int = 0,
                     block_k: int = 0):
     """Non-causal multi-head attention, [B, N, H, D] x [B, M, H, D] -> [B, N, H, D].
 
-    CUDA tensors run the kernel (output in q's dtype, contiguous); CPU
-    tensors run ``attention_plain``. block_q / block_k = 0 take the default
-    tiles; other values are the probes' tile sweep (see SWEEP_BLOCK_Q/K).
+    CUDA tensors run the kernel ``route`` picks (output in q's dtype,
+    contiguous); CPU tensors run ``attention_plain`` and count nothing.
+    block_q / block_k = 0 take the default tiles; other values are the
+    probes' tile sweep (see SWEEP_BLOCK_Q/K) on the mma.sync kernel.
     """
     global LAUNCHES
     if scale is None:
@@ -149,4 +263,5 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, block_q: int = 0,
         return attention_plain(q, k, v, scale)
     out = launch(q, k, v, scale=scale, block_q=block_q, block_k=block_k)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route(q, k, v, block_q, block_k)] += 1
     return out

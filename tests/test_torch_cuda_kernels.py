@@ -65,6 +65,7 @@ def test_build_reports_registers(cuda):
     log = _build.build_log()
     print(log)
     assert "flash_fwd_kernel" in log and "flash_mma_kernel" in log
+    assert "flash_wgmma_kernel" in log
     assert "gn_cluster_kernel" in log and "gn_apply_kernel" in log
     assert "flash_group_fwd_kernel" in log and "flash_group_mma_kernel" in log
 
@@ -89,16 +90,87 @@ def test_build_reports_registers(cuda):
     (1, 4096, 4096, 12, 64), (1, 1024, 1024, 24, 64), (1, 256, 256, 24, 64),
 ])
 def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
+    """Each launch counts once in all and once on its route: fp32 on the
+    scalar kernel, bf16 at d % 8 == 0 on the wgmma kernel, else mma.sync."""
     q = _randn((b, n, h, d), dtype, cuda, 0)
     k = _randn((b, m, h, d), dtype, cuda, 1)
     v = _randn((b, m, h, d), dtype, cuda, 2)
-    before = fa.LAUNCHES
+    route = "scalar" if dtype == torch.float32 else "wgmma" if d % 8 == 0 else "mma"
+    assert fa.route(q, k, v) == route
+    before, routes = fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)
     got = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
+    assert fa.ROUTE_LAUNCHES == {**routes, route: routes[route] + 1}
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
     _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
+
+
+def test_flash_wgmma_is_bitwise_repeatable(cuda):
+    """No split over keys and no atomics: two calls give the same bytes, and
+    so does each tile rule (one, two or three consumer warpgroups)."""
+    q, k, v = (_randn((2, 1000, 6, 64), torch.bfloat16, cuda, i) for i in range(3))
+    assert fa.route(q, k, v) == "wgmma"
+    first = fa.flash_attention(q, k, v)
+    assert torch.equal(first.view(torch.int16), fa.flash_attention(q, k, v).view(torch.int16))
+    rule = fa.wgmma_consumers
+    try:
+        for c in (1, 2, 3):
+            fa.wgmma_consumers = lambda *a, c=c, **kw: c
+            assert torch.equal(fa.launch(q, k, v, scale=64 ** -0.5), first)
+    finally:
+        fa.wgmma_consumers = rule
+
+
+@pytest.mark.parametrize("b,n,h,d", [(2, 1024, 20, 64), (2, 4096, 8, 40)])
+def test_flash_wgmma_batch_row_equals_its_solo_call(cuda, b, n, h, d):
+    """SDXL's cfg batch at level 2 and SD1.5's level 1: each batch row of a
+    call on the packed projection's views equals that row's solo call, byte
+    for byte (the tile rule reads no batch)."""
+    qkv = _randn((b, n, 3, h * d), torch.bfloat16, cuda, 4)
+    q, k, v = (qkv[:, :, i].view(b, n, h, d) for i in range(3))
+    assert fa.route(q, k, v) == "wgmma"
+    got = fa.flash_attention(q, k, v)
+    for i in range(b):
+        solo = fa.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert torch.equal(got[i:i + 1], solo)
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (1, 4032, 4032, 10, 64),  # SDXL at 1344x768: ragged query and key tiles
+    (1, 1008, 1008, 20, 64),
+    (1, 4032, 77, 10, 64),    # cross-attention length: one ragged key tile
+    (2, 1008, 77, 20, 64),
+    (1, 100, 77, 8, 40),      # fewer rows than one consumer's 64 + 64
+    (1, 300, 1000, 8, 80),
+])
+def test_flash_wgmma_ragged_edges(cuda, b, n, m, h, d):
+    q = _randn((b, n, h, d), torch.bfloat16, cuda, 5)
+    k = _randn((b, m, h, d), torch.bfloat16, cuda, 6)
+    v = _randn((b, m, h, d), torch.bfloat16, cuda, 7)
+    assert fa.route(q, k, v) == "wgmma"
+    got = fa.flash_attention(q, k, v)
+    want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    _assert_close(got, want, None, TOL_BF16_P)
+
+
+def test_a_failed_wgmma_launch_raises_and_runs_nothing_else(cuda, monkeypatch):
+    """The route is a dispatch, not a fallback: a launch the wgmma entry
+    refuses (here: a tile rule it was not built for) raises, counts nothing
+    and is not run again on the mma.sync kernel."""
+    q, k, v = (_randn((1, 256, 4, 64), torch.bfloat16, cuda, i) for i in range(3))
+    fa.flash_attention(q, k, v)  # build and bind before the spy
+    asked = []
+    kernel = _build.kernel
+    monkeypatch.setattr(_build, "kernel", lambda name, argtypes: asked.append(name) or
+                        kernel(name, argtypes))
+    monkeypatch.setattr(fa, "wgmma_consumers", lambda *a, **kw: 4)
+    before, routes = fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="dl_flash_wgmma"):
+        fa.flash_attention(q, k, v)
+    assert asked == ["dl_flash_wgmma"]
+    assert fa.LAUNCHES == before and fa.ROUTE_LAUNCHES == routes
 
 
 @pytest.mark.parametrize("block_q,block_k", [(64, 16), (64, 32), (64, 64), (128, 16),
@@ -218,9 +290,19 @@ def test_a_packed_unet_hands_the_kernel_its_projection_views(cuda, monkeypatch):
     w = torch.zeros((1, cfg.time_cond_proj_dim), device=cuda)
     want = unet.forward(params, cfg, x, t, ctx, timestep_cond=w)
     monkeypatch.setattr(fa, "launch", spy)
-    got = unet.forward(unet.pack_attention_params(params), cfg, x, t, ctx, timestep_cond=w)
+    packed = unet.pack_attention_params(params)
+    got = unet.forward(packed, cfg, x, t, ctx, timestep_cond=w)
     assert seen and all(stride == 3 * c and dk == dv == c * 4 for stride, c, dk, dv in seen)
     _assert_close(got, want, TOL[torch.float32], None)
+    # in bf16 the same views take the wgmma route (TMA reads them in place)
+    routes = []
+    monkeypatch.setattr(fa, "launch", lambda q, k, v, **kw: routes.append(fa.route(q, k, v))
+                        or spy(q, k, v, **kw))
+    seen.clear()
+    bf = testing.cast_tree(packed, torch.bfloat16)
+    unet.forward(bf, cfg, x.bfloat16(), t, ctx.bfloat16(), timestep_cond=w.bfloat16())
+    assert seen and all(stride == 3 * c for stride, c, _, _ in seen)
+    assert routes and set(routes) == {"wgmma"}
 
 
 def test_flash_rejects_what_it_does_not_take(cuda):

@@ -1,0 +1,163 @@
+"""K1's dispatch in the port: ``route`` and the wgmma kernel's tile rule.
+
+``ops/flash_attention.py::route`` picks the kernel a call launches from the
+inputs alone: "wgmma" (csrc/flash_wgmma.cu) for bf16 that TMA can describe,
+"mma" (csrc/flash_attention.cu's mma.sync kernel) for other bf16 and the
+probes' tile sweep, "scalar" for fp32. These tests hold the rule at every
+shape the pipelines give K1 (as the packed projection's views and as
+contiguous tensors), at the shapes it sends elsewhere, and the CPU path's
+result to the JAX package's attention on the packed views.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from dreamlab_tpu.ops.attention import _xla_attention
+from dreamlab_tpu_torch.ops import attention as tattn
+from dreamlab_tpu_torch.ops import flash_attention as tfa
+
+# [B, N, H, D] of every K1 self-attention site: SD1.5 at 512² (txt2img,
+# img2img, styles, ControlNet's trunk, the mesh's data axis; batch 8 on the
+# run_jobs path), SDXL at 1024² (its cfg mode doubles the batch) and
+# 1344x768, the refiner at 1024², SD1.5 on the mesh's model axis (4 heads a
+# rank)
+CENSUS = [
+    (1, 4096, 8, 40), (1, 1024, 8, 80), (8, 4096, 8, 40), (8, 1024, 8, 80),
+    (1, 4096, 10, 64), (1, 1024, 20, 64), (2, 4096, 10, 64), (2, 1024, 20, 64),
+    (1, 4032, 10, 64), (1, 1008, 20, 64),
+    (1, 4096, 12, 64), (1, 1024, 24, 64), (1, 256, 24, 64),
+    (1, 4096, 4, 40), (1, 1024, 4, 80),
+]
+
+
+def _packed(b, n, h, d, dtype=torch.bfloat16):
+    """q, k, v as views of one [B, N, 3, H*D] projection output (token stride 3*H*D)."""
+    buf = torch.empty((b, n, 3, h * d), dtype=dtype)
+    return tuple(buf[:, :, i].view(b, n, h, d) for i in range(3))
+
+
+def _contiguous(b, n, h, d, dtype=torch.bfloat16):
+    return tuple(torch.empty((b, n, h, d), dtype=dtype) for _ in range(3))
+
+
+@pytest.mark.parametrize("layout", [_packed, _contiguous], ids=["packed", "contiguous"])
+@pytest.mark.parametrize("b,n,h,d", CENSUS)
+def test_every_census_shape_takes_the_wgmma_route(layout, b, n, h, d):
+    q, k, v = layout(b, n, h, d)
+    assert tfa.route(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("d", [20, 7])
+def test_head_dims_tma_cannot_take_go_to_mma(d):
+    q, k, v = _contiguous(1, 256, 4, d)
+    assert tfa.route(q, k, v) == "mma"
+
+
+def test_an_unaligned_base_goes_to_mma():
+    """An offset view whose base is 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(1 * 256 * 4 * 64 + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    q = buf[1:1 + 256 * 4 * 64].view(1, 256, 4, 64)
+    k = buf[8:8 + 256 * 4 * 64].view(1, 256, 4, 64)  # 16 bytes in: aligned
+    assert tfa.route(k, k, k) == "wgmma"
+    assert tfa.route(q, k, k) == tfa.route(k, q, k) == tfa.route(k, k, q) == "mma"
+
+
+def test_strides_that_are_not_multiples_of_8_go_to_mma():
+    buf = torch.empty((1, 256, 4 * 64 + 4), dtype=torch.bfloat16)  # token stride 260
+    q = buf[:, :, :256].unflatten(2, (4, 64))
+    assert q.stride(1) == 260
+    k = torch.empty((1, 256, 4, 64), dtype=torch.bfloat16)
+    assert tfa.route(q, k, k) == "mma"
+
+
+@pytest.mark.parametrize("block_q,block_k", [(64, 0), (0, 32), (128, 64)])
+def test_the_tile_sweep_goes_to_mma(block_q, block_k):
+    q, k, v = _packed(1, 4096, 8, 40)
+    assert tfa.route(q, k, v, block_q, block_k) == "mma"
+
+
+@pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 256, 4, 20)])
+def test_fp32_goes_to_scalar(b, n, h, d):
+    q, k, v = _contiguous(b, n, h, d, torch.float32)
+    assert tfa.route(q, k, v) == "scalar"
+
+
+def test_cpu_tensors_compute_the_plain_version_and_count_nothing():
+    rs = np.random.RandomState(3)
+    buf = torch.from_numpy(rs.randn(1, 256, 3, 4 * 40).astype(np.float32)).bfloat16()
+    q, k, v = (buf[:, :, i].view(1, 256, 4, 40) for i in range(3))
+    assert tfa.route(q, k, v) == "wgmma"
+    before = (tfa.LAUNCHES, dict(tfa.ROUTE_LAUNCHES))
+    got = tfa.flash_attention(q, k, v)
+    via_dispatch = tattn.dot_product_attention(q, k, v, impl="flash")
+    assert (tfa.LAUNCHES, tfa.ROUTE_LAUNCHES) == before
+    want = tfa.attention_plain(q, k, v, 40 ** -0.5)
+    assert torch.equal(got, want) and torch.equal(via_dispatch, want)
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [(1, 256, 256, 4, 40), (2, 256, 256, 2, 64),
+                                       (1, 128, 128, 2, 80)])
+def test_the_plain_version_on_packed_views_matches_jax(b, n, m, h, d):
+    """The CPU path on the packed projection's views (what the wgmma route
+    reads) against the JAX package's XLA attention and its Pallas kernel in
+    interpret mode, on the same fp32 inputs."""
+    rs = np.random.RandomState(n + h + d)
+    buf = rs.randn(b, n, 3, h * d).astype(np.float32)
+    q, k, v = (np.ascontiguousarray(buf[:, :, i].reshape(b, n, h, d)) for i in range(3))
+    tbuf = torch.from_numpy(buf)
+    tq, tk, tv = (tbuf[:, :, i].view(b, n, h, d) for i in range(3))
+    got = tfa.flash_attention(tq, tk, tv).numpy()
+    want = np.asarray(_xla_attention(*map(jnp.asarray, (q, k, v)), d ** -0.5))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    with pltpu.force_tpu_interpret_mode():
+        from dreamlab_tpu.ops.flash_attention import flash_attention
+
+        pallas = np.asarray(flash_attention(*map(jnp.asarray, (q, k, v)), scale=d ** -0.5,
+                                            block_q=128))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("n,h,d,consumers", [
+    (1024, 8, 80, 1),   # SD1.5 level 2: 128 blocks of 64 rows, not 64 of 128
+    (4096, 8, 40, 2),   # SD1.5 level 1: two waves of 128 rows against two of 192
+    (1024, 20, 64, 3),  # SDXL level 2: 120 blocks in one wave, not 160 in two
+    (1008, 20, 64, 3),
+    (4096, 10, 64, 3),  # SDXL level 1: a tie of rows per SM, K/V shared wider
+    (4032, 10, 64, 3),
+    (4096, 12, 64, 3), (1024, 24, 64, 2), (256, 24, 64, 1),
+    (1024, 2, 128, 2),  # d > 80: two consumers always
+    (4096, 4, 40, 2),   # the mesh's model axis: 128 blocks of 128 rows fill the card
+    (1024, 4, 80, 1),
+    (4096, 8, 80, 2),   # three consumers are built for d <= 64
+])
+def test_the_tile_rule_at_the_census_shapes(n, h, d, consumers):
+    assert tfa.wgmma_consumers(n, h, d) == consumers
+
+
+def test_the_tile_rule_fills_the_card_at_sd15_and_sdxl():
+    """SD1.5's [1, 1024, 8, 80] fills more than the 64 blocks of 128 rows;
+    SDXL's [1, 1024, 20, 64] leaves no short second wave on 132 SMs."""
+    def blocks(n, h, d):
+        c = tfa.wgmma_consumers(n, h, d)
+        return -(-n // (tfa.WGMMA_ROWS * c)) * h, c
+
+    sd15, c = blocks(1024, 8, 80)
+    assert sd15 > 64 and c == 1  # one-consumer blocks run two to an SM
+    sdxl, c = blocks(1024, 20, 64)
+    assert c == 3 and sdxl <= tfa.H100_SMS
+
+
+@pytest.mark.parametrize("n,h,d", sorted({(n, h, d) for _, n, h, d in CENSUS}))
+def test_the_tile_rule_reads_no_batch(n, h, d):
+    """The rule sees N, H and d (and the SM count) only: a batch row runs
+    the blocks of its solo call. Any choice stays within the built
+    instances (one consumer and three up to d = 80 and 64)."""
+    c = tfa.wgmma_consumers(n, h, d)
+    assert c in (1, 2, 3)
+    assert c != 3 or d <= 64
+    assert c != 1 or d <= 80
+    assert tfa.wgmma_consumers(n, h, d, sms=tfa.H100_SMS) == c

@@ -252,22 +252,31 @@ def test_probe_main_needs_a_gpu(monkeypatch, name):
 # ---------------------------------------------------------------------------
 
 
-def _tile_bf16_p(q, k, v, scale, block_k=64):
+def _tile_bf16_p(q, k, v, scale, block_k=64, log2=False):
     """A plain emulation of the tensor-core flash kernel's arithmetic on
     [B, N, H, D]: keys in tiles of ``block_k``, online softmax in fp32, the row
     sum over fp32 P, P rounded to bf16 before the PV product (the Pallas
     kernel's ``p.astype(v.dtype)``), fp32 accumulation, the output rounded
-    to bf16 once."""
+    to bf16 once. ``log2``: the wgmma kernel's form of the softmax, the row
+    max of the raw scores times scale * log2(e) and p = 2^(s * scale *
+    log2(e) - max)."""
     qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))
     b, h, n, d = qh.shape
     row_max = torch.full((b, h, n, 1), -1e30)
     row_sum = torch.zeros((b, h, n, 1))
     acc = torch.zeros((b, h, n, d))
     for j0 in range(0, kh.shape[2], block_k):
-        s = qh @ kh[:, :, j0:j0 + block_k].transpose(-1, -2) * scale
-        new_max = torch.maximum(row_max, s.amax(-1, keepdim=True))
-        alpha = torch.exp(row_max - new_max)
-        p = torch.exp(s - new_max)
+        raw = qh @ kh[:, :, j0:j0 + block_k].transpose(-1, -2)
+        if log2:
+            scale_log2 = scale * 1.4426950408889634
+            new_max = torch.maximum(row_max, raw.amax(-1, keepdim=True) * scale_log2)
+            alpha = torch.exp2(row_max - new_max)
+            p = torch.exp2(raw * scale_log2 - new_max)
+        else:
+            s = raw * scale
+            new_max = torch.maximum(row_max, s.amax(-1, keepdim=True))
+            alpha = torch.exp(row_max - new_max)
+            p = torch.exp(s - new_max)
         row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p.bfloat16().float() @ vh[:, :, j0:j0 + block_k]
         row_max = new_max
@@ -284,6 +293,8 @@ def _faulty(q, k, v, scale, fault, arith):
         keep[1000:1001 if fault == "one_key_dropped" else 1032] = False
     if arith == "fp32":
         return tfa.attention_plain(q, k[:, keep], v[:, keep], scale).bfloat16()
+    if arith == "wgmma":
+        return _tile_bf16_p(q, k[:, keep], v[:, keep], scale, tfa.WGMMA_BLOCK_K, log2=True)
     return _tile_bf16_p(q, k[:, keep], v[:, keep], scale)
 
 
@@ -301,20 +312,27 @@ def _n4096():
     pytest.param(40, 40, "bf16_p", id="40-40-bf16_p"),
     pytest.param(80, 80, "bf16_p", id="80-80-bf16_p"),
     pytest.param(128, 40, "bf16_p", id="128-40-bf16_p"),
+    # the wgmma kernel's tiles and softmax form, at the UNet's head widths
+    pytest.param(40, 40, "wgmma", id="40-40-wgmma"),
+    pytest.param(80, 80, "wgmma", id="80-80-wgmma"),
+    pytest.param(64, 64, "wgmma", id="64-64-wgmma"),
 ])
 def test_probe_limit_passes_one_bf16_rounding(d, scale_d, arith):
     """fp32: the output rounded once to bf16 passes TOL_BF16, at d = 40 and at
     d = 128 with the d = 40 scale, where the outputs reach about 1 and a
     raw-error limit of 3e-3 would fail. bf16_p: the tensor-core kernel's
     arithmetic (P rounded to bf16) leaves more than TOL_BF16 beyond the
-    rounding and passes TOL_BF16_P, at d = 40, 80 and 128."""
+    rounding and passes TOL_BF16_P, at d = 40, 80 and 128; so does the wgmma
+    kernel's (its key tile, the log2-domain softmax) at d = 40, 80 and 64,
+    by the same margin."""
     q, k, v = (x.bfloat16().float() for x in _torch(*_qkv(1, 1, 4096, 4096, 2, d)))
     ref = tfa.attention_plain(q, k, v, scale_d ** -0.5)
     if arith == "fp32":
         check = t_timing.bf16_check(ref.bfloat16(), ref)
         assert check["beyond_rounding"] <= 0
     else:
-        check = t_timing.bf16_check(_tile_bf16_p(q, k, v, scale_d ** -0.5), ref,
+        tiles = (dict(block_k=tfa.WGMMA_BLOCK_K, log2=True) if arith == "wgmma" else {})
+        check = t_timing.bf16_check(_tile_bf16_p(q, k, v, scale_d ** -0.5, **tiles), ref,
                                     t_timing.TOL_BF16_P)
         assert t_timing.TOL_BF16 < check["beyond_rounding"] <= t_timing.TOL_BF16_P / 3
     assert t_timing.report_checks({"rounded": check}) == []
@@ -351,10 +369,12 @@ def test_group_limit_is_the_pallas_kernels_arithmetic(jax_4d, jax_packing, kerne
 @pytest.mark.parametrize("fault,arith", [
     *(pytest.param(f, "fp32", id=f) for f in _FAULTS),
     *(pytest.param(f, "bf16_p", id=f"{f}-bf16_p") for f in _FAULTS),
+    *(pytest.param(f, "wgmma", id=f"{f}-wgmma") for f in _FAULTS),
 ])
 def test_probe_limit_catches_a_faulty_kernel_at_n4096(fault, arith):
     """Each fault fails its arithmetic's limit by a wide margin: ten times
-    TOL_BF16 in fp32, twice TOL_BF16_P with P rounded to bf16."""
+    TOL_BF16 in fp32, twice TOL_BF16_P with P rounded to bf16 (the mma.sync
+    kernel's arithmetic and the wgmma kernel's, at its key tile)."""
     q, k, v, ref = _n4096()
     limit, margin = ((t_timing.TOL_BF16, 10) if arith == "fp32"
                      else (t_timing.TOL_BF16_P, 2))
