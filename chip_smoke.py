@@ -5,16 +5,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and nvcc, imports nothing of JAX, and exits non-zero if any phase fails.
 Each phase's end goes to stderr with the seconds since the start; a run
 still going after ``WATCHDOG_S`` writes every thread's stack to stderr,
-kills its child processes and exits 1. Phases:
+kills its child processes and exits 1 (and ``BACKSTOP_S`` later, should a
+thread hold the GIL in a C call so that the watchdog's thread cannot run,
+faulthandler writes the stacks and exits 1 without it). Phases:
 
 1. prints the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
 2. builds the CUDA kernels from ``dreamlab_tpu_torch/csrc`` (nvcc, sm_90a),
    prints each kernel's registers and spills (ptxas) and its tensor-core
    instructions (cuobjdump: HMMA for mma.sync, HGMMA for wgmma), and fails
-   if an instance of a bf16 flash kernel (K1's ``flash_wgmma_kernel`` with
-   HGMMA; the mma.sync ``flash_mma_kernel`` and head-group
-   ``flash_group_mma_kernel`` with HMMA) has none or spills, if ptxas
-   ignored a ``setmaxnreg`` (C7508) or serialized K1's wgmmas;
+   if an instance of a bf16 flash kernel (K1's ``flash_wgmma_kernel`` and
+   the head-group ``flash_group_wgmma_kernel`` with HGMMA; the mma.sync
+   ``flash_mma_kernel`` and ``flash_group_mma_kernel`` with HMMA) has none
+   or spills, if ptxas ignored a ``setmaxnreg`` (C7508), serialized the
+   wgmmas of either wgmma kernel or gave an instance other registers at
+   entry than its ``setmaxnreg`` was sized for;
 3. holds each kernel against its plain PyTorch version on the card (K1
    also on q, k, v views at a packed projection's strides; bf16:
    the error beyond one bf16 rounding of the output,
@@ -31,7 +35,9 @@ kills its child processes and exits 1. Phases:
    over from on the same inputs in alternating rounds (``mma_sync_ms``:
    no census shape slower, a request's K1 time at most 0.8x at SD1.5 and
    0.6x at SDXL 1024²); at each flash shape also K1's tile sweep and the head-group
-   kernel at the JAX package's pack (main-path candidates);
+   kernel at the JAX package's pack (its ``"wgmma"`` route beside the
+   mma.sync group kernel on the same inputs in alternating rounds: never
+   slower; candidates the main path does not take);
 5. drives the main path at SD1.5's full width with seeded random bf16
    weights: captures the batch-1 and batch-8 buckets (``warmup``: one eager
    run, then the capture, each launching every kernel once per call: the
@@ -260,7 +266,7 @@ from dreamlab_tpu_torch.ops import _build, attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
-from dreamlab_tpu_torch.pipeline import LCMPipeline, _flat
+from dreamlab_tpu_torch.pipeline import LCMPipeline, _flat, quiesced
 from dreamlab_tpu_torch.scripts import ab_attention_layout, ab_head_packing, ab_transpose_free
 from dreamlab_tpu_torch.serving import app as server_app
 from dreamlab_tpu_torch.serving.http import ServerThread
@@ -327,6 +333,10 @@ FAILURES = []
 # the script must end within 1200 s: a run still going at this many seconds
 # writes every thread's stack to stderr, kills its child processes and exits 1
 WATCHDOG_S = 1080
+# faulthandler's own thread needs no GIL: it writes every thread's stack and
+# exits this many seconds after the watchdog, which a GIL held in a C call
+# stops (a run once went silent at the Yume phase and the watchdog never fired)
+BACKSTOP_S = 30
 T_START = time.perf_counter()
 
 
@@ -440,14 +450,27 @@ def sass_tensor_ops(so) -> tuple:
 
 # the bf16 flash kernels: {name: the tensor-core instruction each instance must hold}
 TENSOR_CORE_KERNELS = {"flash_mma_kernel": "HMMA", "flash_group_mma_kernel": "HMMA",
-                       "flash_wgmma_kernel": "HGMMA"}
+                       "flash_wgmma_kernel": "HGMMA", "flash_group_wgmma_kernel": "HGMMA"}
+# the warp-specialised kernels (a producer warpgroup hands its registers to
+# the consumers with setmaxnreg)
+WGMMA_KERNELS = ("flash_wgmma_kernel", "flash_group_wgmma_kernel")
+
+
+def wgmma_instances() -> list:
+    """(demangled name, instance fields) of every built instance of K1's and
+    the head group's wgmma kernels."""
+    return ([(f"{FLASH_KERNEL}<{i['head_dim_padded']}, {i['consumers']}>", i)
+             for i in fa.wgmma_instances()]
+            + [(f"{GROUP_KERNEL}<{i['pack']}, {i['head_dim_padded']}>", i)
+               for i in fg.wgmma_instances()])
 
 
 def check_build(so) -> None:
     """Registers, spills and tensor-core instructions of every kernel; each
     bf16 flash kernel's instances hold their tensor-core instruction and
     spill nothing, and ptxas honoured every setmaxnreg (no C7508) and
-    serialized no wgmma (C7510-C7515: the build still runs, slower)."""
+    serialized no wgmma (C7510-C7515: the build still runs, slower), in
+    K1's and the head group's wgmma kernels alike."""
     build_log = _build.build_log()
     ptxas = ptxas_summary(build_log)
     for row in ptxas:
@@ -464,16 +487,15 @@ def check_build(so) -> None:
     ignored = [line for line in build_log.splitlines() if "C7508" in line]
     expect(not ignored, f"ptxas ignored setmaxnreg: {ignored}")
     serialized = [line for line in build_log.splitlines()
-                  if re.search(r"C751[0-5]", line) and FLASH_KERNEL in line]
+                  if re.search(r"C751[0-5]", line) and any(k in line for k in WGMMA_KERNELS)]
     log({"wgmma_serialized": serialized})
     regs = {r["kernel"]: r.get("registers") for r in ptxas}
-    for inst in fa.wgmma_instances():
-        name = f"{FLASH_KERNEL}<{inst['head_dim_padded']}, {inst['consumers']}>"
+    for name, inst in wgmma_instances():
         log({"wgmma_instance": name, **inst, "ptxas_registers": regs.get(name)})
         expect(regs.get(name) == inst["entry_registers"],
                f"{name}: ptxas gave {regs.get(name)} registers, setmaxnreg was sized for "
                f"{inst['entry_registers']}")
-    expect(not serialized, f"ptxas serialized the wgmmas of {FLASH_KERNEL}: {serialized}")
+    expect(not serialized, f"ptxas serialized the wgmmas of {WGMMA_KERNELS}: {serialized}")
 
 
 # ---------------------------------------------------------------------------
@@ -747,18 +769,29 @@ def expect_k1_speedup(rows, limit: float, what: str) -> None:
 
 def time_group(q, k, v) -> dict:
     """The head-group kernel at the JAX package's pack for this shape (a
-    candidate for the main path, which runs one head per block), checked
-    against the plain fp32 version, then timed; {} where pack_geometry
-    gives one head or a group the kernel does not take."""
+    candidate for the main path, which runs one head per block): the route
+    it takes (the paths' q, k, v views must take "wgmma"), checked against
+    the plain fp32 version, then timed beside the mma.sync group kernel on
+    the same inputs in alternating rounds, which it must not be slower than;
+    {} where pack_geometry gives one head or a group the kernel does not
+    take. Its launches are not counted: the paths launch none."""
     b, n, h, d = q.shape
     pack = fa.pack_geometry(h, d)[0]
     if d > fg.MAX_HEAD_DIM.get(pack, 0):
         return {}
-    want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    c = bf16_check(fg.flash_group(q, k, v, pack=pack), want, TOL_BF16_P)
+    s = d ** -0.5
+    route = fg.route(q, k, v, pack)
+    expect(route == "wgmma", f"flash_group census {[b, n, h, d]}: route {route}")
+    want = fa.attention_plain(q.float(), k.float(), v.float(), s)
+    c = bf16_check(fg.launch(q, k, v, pack=pack, scale=s), want, TOL_BF16_P)
     expect(c["beyond_rounding"] <= c["limit"], f"flash_group census {[b, n, h, d]}: {c}")
-    return {"pack": pack, "ms": device_ms(lambda: fg.flash_group(q, k, v, pack=pack)),
-            "check": c}
+    ab, _ = compare({"ms": lambda: fg.launch(q, k, v, pack=pack, scale=s),
+                     "mma_sync_ms": lambda: fg.launch(q, k, v, pack=pack, scale=s,
+                                                      kernel="mma")})
+    expect(ab["ms"] <= ab["mma_sync_ms"],
+           f"flash_group census {[b, n, h, d]}: the wgmma group kernel {ab['ms']} ms, slower "
+           f"than the mma.sync one's {ab['mma_sync_ms']} ms")
+    return {"pack": pack, "route": route, **ab, "check": c}
 
 
 def _accumulate(row, t, bms, by, count) -> None:
@@ -814,14 +847,17 @@ def reset_counts() -> None:
     gn.LAUNCHES = 0
     gn.STATS_LAUNCHES = 0
     gn.APPLY_LAUNCHES = 0
+    fg.LAUNCHES = 0
 
 
 def counts() -> dict:
     """Launches per kernel wrapper; "gn" counts every GroupNorm kernel launch,
     so gn == gn_stats == gn_apply means one launch per fused call. Every K1
-    launch since the last reset must have taken the wgmma route."""
+    launch since the last reset must have taken the wgmma route, and the
+    head-group kernel, which no path runs, must not have launched."""
     expect(fa.ROUTE_LAUNCHES == {"wgmma": fa.LAUNCHES, "mma": 0, "scalar": 0},
            f"K1's {fa.LAUNCHES} launches since the reset took the routes {fa.ROUTE_LAUNCHES}")
+    expect(fg.LAUNCHES == 0, f"a path launched the head-group kernel {fg.LAUNCHES} times")
     return {"flash": fa.LAUNCHES, "gn": gn.LAUNCHES, "gn_stats": gn.STATS_LAUNCHES,
             "gn_apply": gn.APPLY_LAUNCHES}
 
@@ -993,6 +1029,8 @@ def kernel_times(prof) -> list:
 # kernel it took over from (csrc/flash_attention.cu), which no path may run
 FLASH_KERNEL = "flash_wgmma_kernel"
 MMA_FLASH_KERNEL = "flash_mma_kernel"
+# the probes' head-group kernel on its "wgmma" route (csrc/flash_group_wgmma.cu)
+GROUP_KERNEL = "flash_group_wgmma_kernel"
 PORT_KERNELS = (FLASH_KERNEL, MMA_FLASH_KERNEL, "flash_fwd_kernel", "gn_cluster_kernel",
                 "gn_apply_kernel")
 
@@ -1014,11 +1052,20 @@ def profile(run) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # started and stopped with no launch section of any thread in flight: a
+    # stop beside a graph replay on another thread (the Yume phase's dream
+    # session) can hang the process with the GIL held
+    prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with quiesced():
+        prof.start()
+    try:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        with quiesced():
+            prof.stop()
     kernels = kernel_times(prof)
     busy_ms = sum(ms for ms, _, _ in kernels)
     gemm_by_name = collections.Counter()
@@ -3438,6 +3485,7 @@ def reset_probe_counts() -> None:
     fa.LAUNCHES = 0
     fa.ROUTE_LAUNCHES.update(dict.fromkeys(fa.ROUTES, 0))
     fg.LAUNCHES = 0
+    fg.ROUTE_LAUNCHES.update(dict.fromkeys(fg.ROUTES, 0))
     ab_transpose_free.LAUNCHES = 0
     ab_attention_layout.LAUNCHES = 0
     ab_head_packing.LAUNCHES = 0
@@ -3447,7 +3495,9 @@ def probe_counts() -> dict:
     return {"flash_4d": ab_transpose_free.LAUNCHES,
             "flash_folded": ab_attention_layout.LAUNCHES,
             "flash_packed3": ab_head_packing.LAUNCHES,
-            "flash_group (K4 + K6)": fg.LAUNCHES, "flash (K1 beside them)": fa.LAUNCHES,
+            "flash_group (K4 + K6)": fg.LAUNCHES,
+            "flash_group routes (K4 + K6)": dict(fg.ROUTE_LAUNCHES),
+            "flash (K1 beside them)": fa.LAUNCHES,
             "flash routes (K1 beside them)": dict(fa.ROUTE_LAUNCHES)}
 
 
@@ -3468,11 +3518,21 @@ def probes(errs) -> tuple:
         expect(not run["failed"], f"{probe}: checks failed {run['failed']}")
     for name in ("flash_4d", "flash_folded", "flash_packed3"):
         expect(launches[name] > 0, f"the probes launched {name} no time")
+    # K4 and K6 ran on the wgmma group kernel, and it beat the mma.sync one
+    group_routes = launches["flash_group routes (K4 + K6)"]
+    expect(group_routes == {"wgmma": launches["flash_group (K4 + K6)"], "mma": 0, "scalar": 0},
+           f"the probes' head-group launches took the routes {group_routes}")
+    t4, hp = runs["ab_transpose_free"], runs["ab_head_packing"]
+    group_ab = [(tag, t["group_ms"], t["group_mma_sync_ms"]) for tag, t in
+                t4.get("shapes", {}).items()]
+    if "packed3_ms" in hp:
+        group_ab.append(("packed3", hp["packed3_ms"], hp["packed3_mma_sync_ms"]))
+    for tag, ms, mma_ms in group_ab:
+        expect(ms <= mma_ms, f"probe {tag}: the wgmma group kernel {ms} ms, slower than the "
+                             f"mma.sync one's {mma_ms} ms")
     end_phase("probes")
 
-    t4 = runs["ab_transpose_free"]
     lay = runs["ab_attention_layout"]
-    hp = runs["ab_head_packing"]
     checks_of = {"flash_4d": [c for case, c in t4["checks"].items() if case.endswith("/group")],
                  "flash_folded": [lay["checks"][lane] for lane in ("folded", "nopad")],
                  "flash_packed3": [hp["checks"]["packed3"]]}
@@ -3496,10 +3556,11 @@ def probes(errs) -> tuple:
                           self_attention_bound(hp["shape"], bf16)),
     }
     sources = {
-        "flash_4d": ("dreamlab_tpu_torch/csrc/flash_group.cu", "scripts/ab_transpose_free.py:46"),
+        "flash_4d": ("dreamlab_tpu_torch/csrc/flash_group_wgmma.cu",
+                     "scripts/ab_transpose_free.py:46"),
         "flash_folded": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
                          "scripts/ab_attention_layout.py:61"),
-        "flash_packed3": ("dreamlab_tpu_torch/csrc/flash_group.cu",
+        "flash_packed3": ("dreamlab_tpu_torch/csrc/flash_group_wgmma.cu",
                           "scripts/ab_head_packing.py:134"),
     }
     # K5 is K1's kernel on the folded view: the route it took, and the
@@ -3511,6 +3572,20 @@ def probes(errs) -> tuple:
     k5_route = {"flash_route": fa.route(q5, k5, v5), "mma_sync_ms": k5_ab["mma_sync"],
                 "wgmma_ms_beside_mma_sync": k5_ab["wgmma"]}
     del q5, k5, v5
+    # K4 and K6: the route the probe's inputs took, the mma.sync group kernel
+    # and K1 on the same inputs, timed in the probe's own alternating rounds
+    group_of = {
+        "flash_4d": {"group_route": sorted({t["group_route"] for t in t4["shapes"].values()}),
+                     "mma_sync_ms": sum(t["group_mma_sync_ms"] for t in t4["shapes"].values()),
+                     "one_head_ms": sum(t["one_head_ms"] for t in t4["shapes"].values())},
+        "flash_packed3": {"group_route": [hp["packed3_route"]],
+                          "mma_sync_ms": hp["packed3_mma_sync_ms"],
+                          "one_head_ms": hp["one_head_ms"]},
+    }
+    for name, g in group_of.items():
+        expect(g["group_route"] == ["wgmma"], f"{name}: the probe's inputs took {g['group_route']}")
+        g.update(group_route=g["group_route"][0], group_kernel=GROUP_KERNEL,
+                 source_mma_sync="dreamlab_tpu_torch/csrc/flash_group.cu")
     entries = []
     for name, (ms, plain_ms, library_ms, (bms, by)) in rows.items():
         entries.append({
@@ -3521,7 +3596,7 @@ def probes(errs) -> tuple:
             "beyond_rounding_limit": TOL_BF16_P, "max_beyond_rounding": errs[f"{name}_beyond"],
             # K5 at lane 128 computes 3.2x the work of d = 40: both bounds
             **({"bound_ms_d40": k5_bound(al.D)[0], **k5_route}
-               if name == "flash_folded" else {})})
+               if name == "flash_folded" else group_of[name])})
     line = {"probes": {**runs, "launches": launches, "probes_s": time.perf_counter() - t0}}
     return entries, line
 
@@ -3582,6 +3657,7 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         return 1
     timer = threading.Timer(WATCHDOG_S, watchdog)
+    faulthandler.dump_traceback_later(WATCHDOG_S + BACKSTOP_S, exit=True, file=sys.stderr)
     timer.daemon = True
     timer.start()
     smi = smi_line()

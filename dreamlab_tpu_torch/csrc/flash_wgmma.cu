@@ -52,20 +52,17 @@
 //    [1,1024,8,80]: 128 blocks instead of 64), three (192 rows) where that
 //    takes no more rows per SM (SDXL's [1,1024,20,64]: 120 blocks, one
 //    wave, instead of 160 and a 28-block second one), else two.
+// The consumer warpgroups' loop is csrc/flash_sm90.cuh's flash_consumer,
+// shared with the head-group kernel (csrc/flash_group_wgmma.cu).
 // Nothing is split over keys and there are no atomics: each block walks its
 // rows' keys in one fixed order, so a row's bytes do not depend on the batch,
 // on the tile rule or on the run.
 
-#include <cuda.h>
-
 #include <initializer_list>
 
-#include "sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
-
-constexpr int kRows = 64;   // query rows per consumer warpgroup (wgmma's M)
-constexpr int kProducerRegs = 24;
 
 // One instance: DP = head dim padded to a multiple of 16, NCONS consumer
 // warpgroups (1, 2 or 3: 64, 128 or 192 query rows a block). ptxas budgets
@@ -103,102 +100,6 @@ struct WgmmaCfg {
   static constexpr int kSmemBytes = kBarOffset + (2 * kStages + 1) * 8 + 1024;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int KP>
-__device__ __forceinline__ void fence_p(uint32_t (&pa)[KP][4]) {
-#pragma unroll
-  for (int kp = 0; kp < KP; ++kp) fence_operands(pa[kp]);
-}
-
-// S = Q K^T for 64 rows and a BK-key tile, 16 head dims a step (chunk
-// ks * 16 / (SW / 2), 32 bytes into its rows per step within it; issued,
-// not waited for)
-template <int DP, int SW, int BK>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], const unsigned char* sqc,
-                                         const unsigned char* skt) {
-  constexpr int kSteps = SW / 32;  // k16 steps a chunk
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    const int ch = ks / kSteps;
-    const int off = (ks % kSteps) * 32;
-    wgmma_ss_k16(sc, wgmma_desc<SW>(sqc + ch * kRows * SW + off, 16, 8 * SW),
-                 wgmma_desc<SW>(skt + ch * BK * SW + off, 16, 8 * SW), ks);
-  }
-}
-
-// O += P V for a BK-key tile, 16 keys a step; V's tile through an MN-major
-// descriptor (issued, not waited for)
-template <int SW, int N, int KP>
-__device__ __forceinline__ void issue_pv(float (&acc)[N], const uint32_t (&pa)[KP][4],
-                                         const unsigned char* svt) {
-#pragma unroll
-  for (int kp = 0; kp < KP; ++kp) {
-    wgmma_rs_k16(acc, pa[kp], wgmma_desc<SW>(svt + kp * 16 * SW, KP * 16 * SW, 8 * SW));
-  }
-}
-
-// Online softmax of one tile of raw scores in the log2 domain (rows g and
-// g + 8 of the thread: e / 2 of each accumulator quadruple): keys >= m
-// masked with the finite -1e30 (RAGGED: the tile crosses m), the row max
-// over the quad, p = 2^(s * scale_log2 - max) (one FFMA and ex2), the row
-// sum over fp32 p (the Pallas kernel's l_scr update), P rounded to bf16 into
-// wgmma's register-A layout. alpha rescales what was accumulated before this
-// tile. The scores are only read: a wgmma of the next tile writes them.
-template <bool RAGGED, int BK>
-__device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4],
-                                             float (&row_max)[2], float (&row_sum)[2],
-                                             float (&alpha)[2], int key0, int m, int t,
-                                             float scale_log2) {
-  auto score = [&](int i) {
-    const int key = key0 + 8 * (i / 4) + 2 * t + (i & 1);
-    return RAGGED && key >= m ? kNegInf : sc[i];
-  };
-  float tile_max[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], score(i));
-  float neg_max[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-    const float new_max = fmaxf(row_max[r], tile_max[r] * scale_log2);
-    alpha[r] = ex2(row_max[r] - new_max);
-    row_max[r] = new_max;
-    row_sum[r] *= alpha[r];
-    neg_max[r] = -new_max;
-  }
-#pragma unroll
-  for (int kp = 0; kp < BK / 16; ++kp) {
-    float p[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      p[e] = ex2(fmaf(score(8 * kp + e), scale_log2, neg_max[(e >> 1) & 1]));
-      row_sum[(e >> 1) & 1] += p[e];
-    }
-    pa[kp][0] = pack_bf16(p[0], p[1]);  // row g, keys 16kp + 2t
-    pa[kp][1] = pack_bf16(p[2], p[3]);  // row g + 8
-    pa[kp][2] = pack_bf16(p[4], p[5]);  // row g, keys 16kp + 8 + 2t
-    pa[kp][3] = pack_bf16(p[6], p[7]);  // row g + 8
-  }
-}
-
-template <int BK>
-__device__ __forceinline__ void softmax(const float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4],
-                                        float (&row_max)[2], float (&row_sum)[2],
-                                        float (&alpha)[2], int key0, int m, int t,
-                                        float scale_log2) {
-  if (key0 + BK > m) {
-    softmax_tile<true, BK>(sc, pa, row_max, row_sum, alpha, key0, m, t, scale_log2);
-  } else {
-    softmax_tile<false, BK>(sc, pa, row_max, row_sum, alpha, key0, m, t, scale_log2);
-  }
-}
-
 template <int DP, int NCONS>
 __global__ void __launch_bounds__(WgmmaCfg<DP, NCONS>::kThreads,
                                   WgmmaCfg<DP, NCONS>::kBlocksPerSM)
@@ -208,7 +109,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   using Cfg = WgmmaCfg<DP, NCONS>;
   constexpr int S = Cfg::kStages;
   constexpr int BK = Cfg::kBK;
-  constexpr int KP = BK / 16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* sq = base;                      // [NCONS][chunks][64][16]
@@ -268,132 +168,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // ---------------- consumers: 64 query rows each ----------------------
     setmaxnreg_inc<Cfg::kConsumerRegs>();
     const int cw = wg - 1;
-    const int tid = threadIdx.x % 128;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int g = lane / 4;  // accumulator rows g and g + 8 of this warp's 16
-    const int t = lane % 4;  // accumulator columns 2t, 2t + 1 of each 8
-    const unsigned char* sqc = sq + cw * Cfg::kQBytes;
-
-    float acc[DP / 2];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
-    // rows g and g + 8: running max (log2 domain) and this thread's share of the sum
-    float row_max[2] = {kNegInf, kNegInf};
-    float row_sum[2] = {0.f, 0.f};
-
-    // Tile it's S = Q K^T is issued beside tile it - 1's O += P V, and its
-    // softmax runs while that product is on the tensor cores (the per-row
-    // arithmetic and its order are those of an unpipelined loop). P
-    // alternates between two register sets: a copy from one to the other
-    // would make ptxas serialize the wgmmas.
-    float sc[BK / 2];
-    uint32_t pa[KP][4], pb[KP][4];
-    float alpha[2];
-    mbar_wait(qbar, 0);
-    mbar_wait(&full[0], 0);
-    wgmma_fence();
-    issue_qk<DP, Cfg::kSW, BK>(sc, sqc, sk);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(sc);
-    softmax<BK>(sc, pa, row_max, row_sum, alpha, 0, m, t, scale_log2);  // acc is still 0
-
-    // tile it: S = Q K^T beside O += P_in V of tile it - 1; its P into p_out
-    auto step = [&](int it, uint32_t (&p_in)[KP][4], uint32_t (&p_out)[KP][4]) {
-      const int s = it % S;
-      const int sp = (it - 1) % S;
-      mbar_wait(&full[s], (it / S) & 1);
-      fence_operands(sc);
-      fence_operands(acc);
-      fence_p(p_in);
-      wgmma_fence();
-      issue_qk<DP, Cfg::kSW, BK>(sc, sqc, sk + s * Cfg::kTileBytes);
-      wgmma_commit();
-      issue_pv<Cfg::kSW>(acc, p_in, sv + sp * Cfg::kTileBytes);
-      wgmma_commit();
-      wgmma_wait<1>();  // S of tile it
-      fence_operands(sc);
-      softmax<BK>(sc, p_out, row_max, row_sum, alpha, it * BK, m, t, scale_log2);
-      wgmma_wait<0>();  // O += P V of tile it - 1
-      fence_operands(acc);
-      fence_p(p_in);  // P stays in its registers until the product has read it
-      if (lane == 0) mbar_arrive(&empty[sp]);  // this warp is done with the stage
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        acc[4 * j] *= alpha[0];
-        acc[4 * j + 1] *= alpha[0];
-        acc[4 * j + 2] *= alpha[1];
-        acc[4 * j + 3] *= alpha[1];
-      }
-    };
-    // O += P V of the tile in stage s, waited for
-    auto finish = [&](uint32_t (&p)[KP][4], int s) {
-      fence_operands(acc);
-      fence_p(p);
-      wgmma_fence();
-      issue_pv<Cfg::kSW>(acc, p, sv + s * Cfg::kTileBytes);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(acc);
-      fence_p(p);
-    };
-    if constexpr (Cfg::kPipelined) {
-      int it = 1;
-      for (; it + 1 < ntiles; it += 2) {
-        step(it, pa, pb);
-        step(it + 1, pb, pa);
-      }
-      if (it < ntiles) {
-        step(it, pa, pb);
-        finish(pb, (ntiles - 1) % S);
-      } else {
-        finish(pa, (ntiles - 1) % S);
-      }
-    } else {
-      // one tile at a time: S, softmax, O += P V
-      for (int it = 1; it < ntiles; ++it) {
-        finish(pa, (it - 1) % S);
-        if (lane == 0) mbar_arrive(&empty[(it - 1) % S]);
-        mbar_wait(&full[it % S], (it / S) & 1);
-        wgmma_fence();
-        issue_qk<DP, Cfg::kSW, BK>(sc, sqc, sk + (it % S) * Cfg::kTileBytes);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(sc);
-        softmax<BK>(sc, pa, row_max, row_sum, alpha, it * BK, m, t, scale_log2);
-#pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
-          acc[4 * j] *= alpha[0];
-          acc[4 * j + 1] *= alpha[0];
-          acc[4 * j + 2] *= alpha[1];
-          acc[4 * j + 3] *= alpha[1];
-        }
-      }
-      finish(pa, (ntiles - 1) % S);
-    }
-
-    // the quad's shares of each row sum, then O / l stored as bf16
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + cw * kRows + warp * 16 + g + r * 8;
-      if (row >= n) continue;
-      const float inv = 1.f / row_sum[r];
-      bf16* op = o + ((static_cast<int64_t>(b) * n + row) * h + hh) * d;
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        const int c = j * 8 + 2 * t;
-        if (c < d) {  // d % 8 == 0: c + 1 < d too
-          *reinterpret_cast<__nv_bfloat162*>(op + c) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
-        }
-      }
-    }
+    flash_consumer<DP, Cfg::kSW, BK, S, Cfg::kPipelined, kRows * Cfg::kSW, BK * Cfg::kSW,
+                   Cfg::kTileBytes>(sq + cw * Cfg::kQBytes, sk, sv, full, empty, qbar, o, b,
+                                    q0 + cw * kRows, hh, n, m, h, d, scale_log2);
   }
 }
 
@@ -401,58 +178,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 // host side: tensor maps and the launch
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // [B, T, H, D] bf16 with strides (sb, st, sh) in elements and the head dim
-// contiguous, as dims {D, H, T, B} (innermost first; strides in bytes grow
-// with the dim for every layout the route sends here). A box is one 16-wide
-// chunk of the head dim of `rows` tokens of one head: [rows][sw / 2] with
-// the sw-byte swizzle; coordinates beyond D or T read as zero.
+// contiguous, as dims {D, H, T, B}. A box is one chunk of the head dim of
+// `rows` tokens of one head: [rows][sw / 2] with the sw-byte swizzle;
+// coordinates beyond D or T read as zero.
 bool encode_map(CUtensorMap* map, const void* ptr, int b, int tokens, int h, int d,
                 const int64_t* s, int rows, int sw) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(tokens), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * 2,
-                                 static_cast<cuuint64_t>(s[1]) * 2,
-                                 static_cast<cuuint64_t>(s[0]) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(sw / 2), 1, static_cast<cuuint32_t>(rows),
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(h),
+                            static_cast<uint64_t>(tokens), static_cast<uint64_t>(b)};
+  const int64_t strides[3] = {s[2], s[1], s[0]};
+  const uint32_t box[4] = {static_cast<uint32_t>(sw / 2), 1, static_cast<uint32_t>(rows), 1};
+  return encode_bf16_map(map, ptr, dims, strides, box, sw);
 }
-
-// return codes beside CUDA's own (ops/flash_attention.py names them)
-constexpr int kErrUnsupported = -1;
-constexpr int kErrTensorMap = -2;
-constexpr int kErrRegisters = -3;
 
 template <int DP, int NCONS>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int n, int m,
@@ -460,15 +197,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
                  float scale, cudaStream_t stream) {
   using Cfg = WgmmaCfg<DP, NCONS>;
   auto kernel = flash_wgmma_kernel<DP, NCONS>;
-  // a kernel entered with fewer registers than setmaxnreg hands out would
-  // wait in setmaxnreg.inc for ever: refuse it instead
-  static const int setup = [&] {
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (attr.numRegs != Cfg::kEntryRegs) return kErrRegisters;
-    return static_cast<int>(allow_smem(kernel, Cfg::kSmemBytes));
-  }();
+  static const int setup = setup_wgmma(kernel, Cfg::kEntryRegs, Cfg::kSmemBytes);
   if (setup != 0) return setup;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, b, n, h, d, qs, kRows, Cfg::kSW) ||

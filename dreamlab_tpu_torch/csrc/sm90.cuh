@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the port's wgmma flash kernel
-// (csrc/flash_wgmma.cu), as inline PTX: mbarriers, TMA tensor loads from a
-// CUtensorMap kernel parameter, wgmma shared-memory descriptors and the
-// wgmma.mma_async forms the kernel issues (A from shared memory or from
-// registers), their fence / commit / wait, and setmaxnreg. Raw PTX, no CuTe:
+// Hopper (sm_90a) building blocks of the port's wgmma flash kernels
+// (csrc/flash_wgmma.cu, csrc/flash_group_wgmma.cu), as inline PTX:
+// mbarriers, TMA tensor loads from a CUtensorMap kernel parameter, wgmma
+// shared-memory descriptors and the wgmma.mma_async forms the kernels issue
+// (A from shared memory or from registers), their fence / commit / wait, and
+// setmaxnreg. Raw PTX, no CuTe:
 // its templates would add minutes to a build that counts against the smoke
 // run's time limit.
 //

@@ -1,18 +1,36 @@
-"""Head-group flash attention: the hand-written CUDA kernel and its plain version.
+"""Head-group flash attention: the hand-written CUDA kernels and their plain version.
 
-The kernel (``csrc/flash_group.cu``) replaces the Pallas TPU kernels of two
-layout probes: ``scripts/ab_transpose_free.py::flash_attention_4d`` (K1's
-kernel over the 4-D ``[B, N, G, L]`` view) and
-``scripts/ab_head_packing.py::_packed3_kernel`` (3 heads per lane block). One
-block owns ``pack`` lane-adjacent heads and reads the group's ``L = pack * d``
-contiguous lanes of each token row in place; each K/V tile is loaded once and
-feeds all ``pack`` heads. bf16 runs the one-head kernel's tensor-core loop
-(64 query rows per head) and rounds P to bf16 before the PV product, as both
-Pallas kernels do; fp32 keeps a scalar kernel (128 query rows per block).
+The kernels replace the Pallas TPU kernels of two layout probes:
+``scripts/ab_transpose_free.py::flash_attention_4d`` (K1's kernel over the
+4-D ``[B, N, G, L]`` view) and ``scripts/ab_head_packing.py::_packed3_kernel``
+(3 heads per lane block). One block owns ``pack`` lane-adjacent heads and
+reads the group's ``L = pack * d`` contiguous lanes of each token row in
+place; each K/V tile is loaded once and feeds all ``pack`` heads.
+``route(q, k, v, pack)`` picks one kernel before any launch, from the
+inputs' dtype, alignment, strides and head dim:
 
-``flash_group`` launches the kernel for CUDA tensors and raises on anything
-the kernel does not take; for CPU tensors it computes ``flash_group_plain``.
-The probe wrappers in ``dreamlab_tpu_torch/scripts`` count their own launches.
+- ``"wgmma"`` (``csrc/flash_group_wgmma.cu``, ``flash_group_wgmma_kernel``):
+  bf16 that TMA can describe, i.e. 16-byte aligned bases, batch, token and
+  head strides positive multiples of 8 elements (16 bytes), d % 8 == 0 and
+  d <= ``MAX_HEAD_DIM[pack]``. Hopper's wgmma and TMA with a producer warp:
+  one TMA box brings a chunk of all ``pack`` heads' K or V tile, and
+  consumer warpgroup c computes head c (64 query rows), in the consumer loop
+  of K1's wgmma kernel (``csrc/flash_sm90.cuh``).
+- ``"mma"`` (``csrc/flash_group.cu``, ``flash_group_mma_kernel``): other
+  bf16 inputs (d = 20, odd head dims, unaligned views). ``mma.sync`` on the
+  tensor cores, 64 query rows per head.
+- ``"scalar"`` (``flash_group_fwd_kernel``): fp32, one thread per (query
+  row, head), since the tensor cores would take fp32 as TF32.
+
+Both bf16 kernels round P to bf16 before the PV product, as both Pallas
+kernels do. The route is a dispatch, not a fallback: a refused or failed
+launch raises and is never run again on another route.
+
+``flash_group`` launches the routed kernel for CUDA tensors and raises on
+anything the kernels do not take; for CPU tensors it computes
+``flash_group_plain``. ``launch`` runs a kernel without counting, for
+same-run comparisons. The probe wrappers in ``dreamlab_tpu_torch/scripts``
+count their own launches.
 """
 
 from __future__ import annotations
@@ -25,16 +43,28 @@ import torch
 from . import _build
 from .flash_attention import attention_plain
 
-# the compiled groups: the widest head each pack takes (csrc/flash_group.cu)
+# the compiled groups: the widest head each pack takes (both bf16 kernels
+# and the fp32 one)
 MAX_HEAD_DIM = {2: 64, 3: 40}
 
-# kernel launches since the last reset
+# kernel launches since the last reset, in all and by route
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "scalar": 0}
+ROUTES = tuple(ROUTE_LAUNCHES)
 
+# dl_flash_group: device, q, k, v, o, dtype, pack, b, n, m, h, d, 6 strides, scale, stream
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
+# dl_flash_group_wgmma: device, q, k, v, o, pack, b, n, m, h, d, 9 strides, scale, stream
+_WGMMA_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
+)
+# C entry points' own return codes (csrc/flash_sm90.cuh)
+_WGMMA_ERRORS = {-1: "inputs the kernel does not take", -2: "the driver refused a tensor map",
+                 -3: "registers at entry differ from what setmaxnreg was sized for"}
 
 
 def flash_group_plain(q, k, v, scale: float):
@@ -76,20 +106,65 @@ def _check_cuda(q, k, v) -> None:
                              f"[..., {d}, 1]), got {tuple(x.stride())}")
 
 
-def flash_group(q, k, v, *, pack: int, scale: Optional[float] = None):
-    """Non-causal attention, [B, N, H, D] x [B, M, H, D] -> [B, N, H, D], one
-    block per group of ``pack`` lane-adjacent heads.
-
-    CUDA tensors run the kernel (output in q's dtype, contiguous); CPU
-    tensors run ``flash_group_plain``. Both check the group geometry.
-    """
-    global LAUNCHES
+def route(q, k, v, pack: int) -> str:
+    """The kernel that takes these inputs: "wgmma", "mma" or "scalar" (see
+    the module docstring). A pure function of dtype, group, head dim, base
+    alignment and strides; it launches nothing and reads no device. Raises
+    on a group the kernels do not take."""
     _check_shapes(q, k, v, pack)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_group_plain(q, k, v, scale)
+    if q.dtype == torch.float32:
+        return "scalar"
+    if q.shape[-1] % 8:
+        return "mma"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
+            return "mma"
+    return "wgmma"
+
+
+def _launch_wgmma(q, k, v, pack: int, scale: float):
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    fn = _build.kernel("dl_flash_group_wgmma", _WGMMA_ARGTYPES)
+    rc = fn(
+        q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        pack, b, n, k.shape[1], h, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        float(scale), _build.stream_of(q),
+    )
+    if rc in _WGMMA_ERRORS:
+        raise RuntimeError(f"dl_flash_group_wgmma: {_WGMMA_ERRORS[rc]} (code {rc})")
+    _build.check(rc, "dl_flash_group_wgmma")
+    return out
+
+
+_INSTANCE_FIELDS = ("pack", "head_dim_padded", "threads", "entry_registers",
+                    "consumer_registers", "block_k", "stages", "smem_bytes")
+
+
+def wgmma_instances() -> list:
+    """The built instances of the wgmma kernel and their launch shape (from
+    the library: ``dl_flash_group_wgmma_instances``), one dict each."""
+    fn = _build.kernel("dl_flash_group_wgmma_instances", [ctypes.c_void_p, ctypes.c_int])
+    width = len(_INSTANCE_FIELDS)
+    rows = (ctypes.c_int * (width * 16))()
+    n = fn(ctypes.cast(rows, ctypes.c_void_p), 16)
+    return [dict(zip(_INSTANCE_FIELDS, rows[width * i:width * (i + 1)])) for i in range(n)]
+
+
+def _launch(q, k, v, pack: int, scale: float, kernel: Optional[str]):
+    """Run ``kernel`` (None: the one ``route`` picks); return the output and
+    the route that ran."""
     _check_cuda(q, k, v)
+    picked = route(q, k, v, pack)
+    if kernel is not None and kernel != picked and not (
+            kernel == "mma" and picked == "wgmma"):
+        raise ValueError(f"kernel {kernel!r} does not take these inputs (route: {picked!r})")
+    kernel = kernel or picked
+    if kernel == "wgmma":
+        return _launch_wgmma(q, k, v, pack, scale), kernel
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     fn = _build.kernel("dl_flash_group", _ARGTYPES)
@@ -100,5 +175,35 @@ def flash_group(q, k, v, *, pack: int, scale: Optional[float] = None):
         float(scale), _build.stream_of(q),
     )
     _build.check(rc, "dl_flash_group")
+    return out, kernel
+
+
+def launch(q, k, v, *, pack: int, scale: float, kernel: Optional[str] = None):
+    """Run a kernel on CUDA tensors [B, N, H, D] x [B, M, H, D]; count nothing.
+
+    ``kernel`` None runs the one ``route`` picks. A same-run A/B may name
+    "mma" for any bf16 input (``chip_smoke.py`` and the probes time the
+    mma.sync kernel beside the wgmma one); "wgmma" only where ``route``
+    gives it. Raises on anything the kernels do not take.
+    """
+    return _launch(q, k, v, pack, scale, kernel)[0]
+
+
+def flash_group(q, k, v, *, pack: int, scale: Optional[float] = None):
+    """Non-causal attention, [B, N, H, D] x [B, M, H, D] -> [B, N, H, D], one
+    block per group of ``pack`` lane-adjacent heads.
+
+    CUDA tensors run the kernel ``route`` picks (output in q's dtype,
+    contiguous); CPU tensors run ``flash_group_plain`` and count nothing.
+    Both check the group geometry.
+    """
+    global LAUNCHES
+    _check_shapes(q, k, v, pack)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return flash_group_plain(q, k, v, scale)
+    out, ran = _launch(q, k, v, pack, scale, None)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[ran] += 1
     return out

@@ -272,6 +272,23 @@ def device_lock(device) -> DeviceLock:
         return _device_locks.setdefault(device, DeviceLock())
 
 
+@contextlib.contextmanager
+def quiesced():
+    """Every device lock of the process (each CUDA device's and any other
+    taken so far) held exclusively, in one fixed order: while it is held no
+    thread is inside a launch section. torch.profiler starts and stops under
+    it: stopping it while another thread replays a CUDA graph can deadlock
+    with the GIL held, so that the whole process stops for good
+    (``scripts/profiler_race.py``)."""
+    devices = {torch.device("cuda", i) for i in range(torch.cuda.device_count())}
+    with _device_locks_guard:
+        devices.update(_device_locks)
+    with contextlib.ExitStack() as held:
+        for device in sorted(devices, key=str):
+            held.enter_context(device_lock(device).exclusive())
+        yield
+
+
 @dataclasses.dataclass
 class _Staged:
     """One request after host staging: its bucket and its program's inputs

@@ -7,9 +7,12 @@ Port of ``scripts/ab_head_packing.py``, all three parts:
    ``[4096, 4096] @ [4096, Nout]`` for Nout in {40, 128}. Equal times would
    mean a narrow head costs a matrix unit as much as a padded one.
 2. ``flash_attention_packed3`` — three heads per block through the
-   head-group kernel (``csrc/flash_group.cu`` at pack 3), checked against the
-   plain fp32 version at ``(8, 4096, 6, 40)`` and timed beside the port's
-   one-head kernel (H = 6 so that both run the same problem).
+   head-group kernel at pack 3 (on the route ``ops/flash_group.py::route``
+   picks: ``"wgmma"``, ``csrc/flash_group_wgmma.cu``, for these bf16
+   inputs), checked against the plain fp32 version at ``(8, 4096, 6, 40)``
+   and timed beside the mma.sync group kernel it took over from
+   (``csrc/flash_group.cu``) and the port's one-head kernel (H = 6 so that
+   all run the same problem).
 3. The one-head kernel's tile sweep (block_q in {64, 128} x block_k in
    {16, 32, 64}, bf16, d = 40), then the same kernel at a true d = 128, which
    says what padding 40 lanes to 128 would cost here. Each instance is
@@ -74,8 +77,9 @@ def flash_attention_packed3(q, k, v, *, scale: float):
 
 
 def main(iters: int = 10) -> dict:
-    """The matmul floors; then every attention kernel variant (packed3, the
-    one-head kernel at each tile of the sweep and at d = 128) against the
+    """The matmul floors; then every attention kernel variant (packed3 on its
+    route and on the mma.sync group kernel, the one-head kernel at each tile
+    of the sweep and at d = 128) against the
     plain fp32 version on its inputs, and their device times beside the plain
     version and SDPA (a yardstick). Times no attention if a check fails
     (``failed`` lists it)."""
@@ -90,7 +94,9 @@ def main(iters: int = 10) -> dict:
     # the same kernel at true d = 128 lanes, the same problem otherwise
     q8, k8, v8 = (randn(rs, (b, n, h, 128)) for _ in range(3))
     kernels = {"one_head": lambda: fa.flash_attention(q, k, v, scale=scale),
-               "packed3": lambda: flash_attention_packed3(q, k, v, scale=scale)}
+               "packed3": lambda: flash_attention_packed3(q, k, v, scale=scale),
+               "packed3_mma_sync": lambda: fg.launch(q, k, v, pack=3, scale=scale,
+                                                     kernel="mma")}
     for bq in fa.SWEEP_BLOCK_Q:
         for bk in fa.SWEEP_BLOCK_K:
             if (bq, bk) != (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K):
@@ -125,6 +131,7 @@ def main(iters: int = 10) -> dict:
     sweep[f"bq{fa.DEFAULT_BLOCK_Q}_bk{fa.DEFAULT_BLOCK_K}"] = ms["one_head"]
     return {"shape": list(SHAPE), "matmul_floors_ms": floors, "checks": errs,
             "failed": [], "one_head_ms": ms["one_head"], "packed3_ms": ms["packed3"],
+            "packed3_route": fg.route(q, k, v, 3), "packed3_mma_sync_ms": ms["packed3_mma_sync"],
             "tile_sweep_ms": sweep, "plain_ms": ms["plain"], "sdpa_ms": ms["sdpa"],
             "one_head_d128_ms": ms["one_head_d128"], "rounds_ms": rounds}
 

@@ -175,7 +175,9 @@ async def not_implemented(request: web.Request) -> web.Response:
 
 # ---------------------------------------------------------------------------
 # profiling: a torch.profiler trace of the host and the card, written as a
-# Chrome trace (trace.json) into the directory when it stops
+# Chrome trace (trace.json) into the directory when it stops. The profiler
+# starts and stops with no launch section in flight (``pipeline.quiesced``):
+# a stop beside another thread's graph replay can hang the process.
 # ---------------------------------------------------------------------------
 
 _PROFILE = {"dir": None, "prof": None, "stopped": False}
@@ -188,6 +190,8 @@ async def profiler_start(request: web.Request) -> web.Response:
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ..pipeline import quiesced
 
     # the body is read BEFORE the running check: no await between check and
     # set, so two concurrent starts cannot both pass
@@ -208,7 +212,8 @@ async def profiler_start(request: web.Request) -> web.Response:
     try:
         os.makedirs(trace_dir, exist_ok=True)
         prof = profile(activities=activities)
-        prof.start()
+        with quiesced():
+            prof.start()
     except Exception as e:
         return web.json_response({"detail": f"start_trace failed: {e}"}, status=500)
     _PROFILE.update(dir=trace_dir, prof=prof, stopped=False)
@@ -218,12 +223,15 @@ async def profiler_start(request: web.Request) -> web.Response:
 async def profiler_stop(request: web.Request) -> web.Response:
     import os
 
+    from ..pipeline import quiesced
+
     if _PROFILE["dir"] is None:
         return web.json_response({"detail": "no trace running"}, status=409)
     prof = _PROFILE["prof"]
     try:
         if not _PROFILE["stopped"]:
-            prof.stop()
+            with quiesced():
+                prof.stop()
             _PROFILE["stopped"] = True
         prof.export_chrome_trace(os.path.join(_PROFILE["dir"], "trace.json"))
     except Exception as e:

@@ -68,6 +68,7 @@ def test_build_reports_registers(cuda):
     assert "flash_wgmma_kernel" in log
     assert "gn_cluster_kernel" in log and "gn_apply_kernel" in log
     assert "flash_group_fwd_kernel" in log and "flash_group_mma_kernel" in log
+    assert "flash_group_wgmma_kernel" in log
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -240,6 +241,113 @@ def test_flash_group_reads_token_strided_views(cuda):
     _assert_close(got, want, None, TOL_BF16_P)
     with pytest.raises(ValueError):  # heads not lane-adjacent
         fg.flash_group(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, pack=3)
+
+
+@pytest.mark.parametrize("b,n,m,h,d,pack", [
+    (8, 4096, 4096, 6, 40, 3),   # K4 and K6 at pack 3
+    (2, 4096, 4096, 10, 64, 2),  # K4 at pack 2
+    (1, 4032, 4032, 10, 64, 2),  # SDXL at 1344x768: ragged query and key tiles
+    (1, 4032, 77, 10, 64, 2),    # cross-attention length: one ragged key tile
+    (2, 4032, 77, 6, 40, 3),
+    (1, 100, 77, 8, 40, 2),      # one 64-row tile and 36 more
+    (2, 130, 50, 6, 16, 3),      # d <= 16: 32-byte rows
+    (1, 128, 100, 4, 24, 2),     # d = 24 zero-filled to 64 by TMA
+])
+def test_flash_group_wgmma_matches_plain(cuda, b, n, m, h, d, pack):
+    """bf16 that TMA can describe takes the wgmma group kernel; the launch
+    counts once in all and once on that route."""
+    q = _randn((b, n, h, d), torch.bfloat16, cuda, 0)
+    k = _randn((b, m, h, d), torch.bfloat16, cuda, 1)
+    v = _randn((b, m, h, d), torch.bfloat16, cuda, 2)
+    assert fg.route(q, k, v, pack) == "wgmma"
+    before, routes = fg.LAUNCHES, dict(fg.ROUTE_LAUNCHES)
+    got = fg.flash_group(q, k, v, pack=pack)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES == before + 1
+    assert fg.ROUTE_LAUNCHES == {**routes, "wgmma": routes["wgmma"] + 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape and got.is_contiguous()
+    want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    _assert_close(got, want, None, TOL_BF16_P)
+
+
+@pytest.mark.parametrize("b,n,h,d,pack", [(2, 4096, 6, 40, 3), (1, 4096, 8, 40, 2),
+                                          (2, 1024, 20, 64, 2)])
+def test_flash_group_wgmma_reads_packed_projection_views(cuda, b, n, h, d, pack):
+    """q, k, v as views of one [B, N, 3, H*D] projection output (token
+    stride 3*H*D): the tensor maps read them in place, and each batch row
+    equals its solo call byte for byte."""
+    qkv = _randn((b, n, 3, h * d), torch.bfloat16, cuda, 4)
+    q, k, v = (qkv[:, :, i].view(b, n, h, d) for i in range(3))
+    assert fg.route(q, k, v, pack) == "wgmma"
+    got = fg.flash_group(q, k, v, pack=pack)
+    want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    _assert_close(got, want, None, TOL_BF16_P)
+    for i in range(b):
+        solo = fg.flash_group(q[i:i + 1], k[i:i + 1], v[i:i + 1], pack=pack)
+        assert torch.equal(got[i:i + 1], solo)
+
+
+@pytest.mark.parametrize("b,n,h,d,pack", [(4, 1000, 6, 40, 3), (3, 1000, 4, 64, 2)])
+def test_flash_group_wgmma_batch_row_equals_its_solo_call(cuda, b, n, h, d, pack):
+    """Contiguous inputs, ragged tiles: each batch row equals that row's
+    solo call byte for byte, and two calls give the same bytes."""
+    q, k, v = (_randn((b, n, h, d), torch.bfloat16, cuda, 10 + i) for i in range(3))
+    got = fg.flash_group(q, k, v, pack=pack)
+    assert torch.equal(got, fg.flash_group(q, k, v, pack=pack))
+    for i in range(b):
+        assert torch.equal(got[i:i + 1],
+                           fg.flash_group(q[i:i + 1], k[i:i + 1], v[i:i + 1], pack=pack))
+
+
+def test_flash_group_routes_count_their_launches(cuda):
+    """bf16 TMA cannot describe (d = 20) takes the mma.sync group kernel,
+    fp32 the scalar one; each launch counts on its own route only."""
+    for dtype, d, route in [(torch.bfloat16, 20, "mma"), (torch.float32, 40, "scalar"),
+                            (torch.bfloat16, 40, "wgmma")]:
+        q, k, v = (_randn((1, 256, 4, d), dtype, cuda, i) for i in range(3))
+        assert fg.route(q, k, v, 2) == route
+        before, routes = fg.LAUNCHES, dict(fg.ROUTE_LAUNCHES)
+        got = fg.flash_group(q, k, v, pack=2)
+        assert fg.LAUNCHES == before + 1
+        assert fg.ROUTE_LAUNCHES == {**routes, route: routes[route] + 1}
+        want = fg.flash_group_plain(q.float(), k.float(), v.float(), d ** -0.5)
+        _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
+
+
+def test_flash_group_launch_runs_the_mma_sync_kernel_beside_wgmma(cuda):
+    """``launch(kernel="mma")`` runs the mma.sync group kernel on inputs the
+    wgmma route takes (the probes' same-run A/B), counts nothing, and agrees
+    with the plain version; "wgmma" where the route says "mma" raises."""
+    q, k, v = (_randn((2, 512, 6, 40), torch.bfloat16, cuda, i) for i in range(3))
+    before, routes = fg.LAUNCHES, dict(fg.ROUTE_LAUNCHES)
+    got = fg.launch(q, k, v, pack=3, scale=40 ** -0.5, kernel="mma")
+    assert (fg.LAUNCHES, fg.ROUTE_LAUNCHES) == (before, routes)
+    want = fg.flash_group_plain(q.float(), k.float(), v.float(), 40 ** -0.5)
+    _assert_close(got, want, None, TOL_BF16_P)
+    q20 = _randn((1, 128, 4, 20), torch.bfloat16, cuda, 3)
+    with pytest.raises(ValueError, match="route"):
+        fg.launch(q20, q20, q20, pack=2, scale=1.0, kernel="wgmma")
+
+
+def test_a_refused_group_wgmma_launch_raises_and_runs_nothing_else(cuda, monkeypatch):
+    """The route is a dispatch, not a fallback: a launch the wgmma entry
+    refuses (here: d = 72, past the widest instance, let through the
+    Python check) raises, counts nothing and is not run again on the
+    mma.sync kernel."""
+    q, k, v = (_randn((1, 256, 6, 40), torch.bfloat16, cuda, i) for i in range(3))
+    fg.flash_group(q, k, v, pack=3)  # build and bind before the spy
+    q, k, v = (_randn((1, 256, 6, 72), torch.bfloat16, cuda, i) for i in range(3))
+    monkeypatch.setattr(fg, "MAX_HEAD_DIM", {2: 64, 3: 72})
+    assert fg.route(q, k, v, 3) == "wgmma"
+    asked = []
+    kernel = _build.kernel
+    monkeypatch.setattr(_build, "kernel", lambda name, argtypes: asked.append(name) or
+                        kernel(name, argtypes))
+    before, routes = fg.LAUNCHES, dict(fg.ROUTE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="dl_flash_group_wgmma"):
+        fg.flash_group(q, k, v, pack=3)
+    assert asked == ["dl_flash_group_wgmma"]
+    assert fg.LAUNCHES == before and fg.ROUTE_LAUNCHES == routes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

@@ -1,4 +1,5 @@
-"""K1's dispatch in the port: ``route`` and the wgmma kernel's tile rule.
+"""The flash kernels' dispatch in the port: K1's ``route`` and its wgmma
+kernel's tile rule, and the head-group kernel's ``route`` (K4 and K6).
 
 ``ops/flash_attention.py::route`` picks the kernel a call launches from the
 inputs alone: "wgmma" (csrc/flash_wgmma.cu) for bf16 that TMA can describe,
@@ -7,6 +8,9 @@ probes' tile sweep, "scalar" for fp32. These tests hold the rule at every
 shape the pipelines give K1 (as the packed projection's views and as
 contiguous tensors), at the shapes it sends elsewhere, and the CPU path's
 result to the JAX package's attention on the packed views.
+``ops/flash_group.py::route`` makes the same three-way choice for the
+head-group kernels (csrc/flash_group_wgmma.cu, csrc/flash_group.cu) at the
+probes' shapes and the census's head-group shapes.
 """
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from dreamlab_tpu.ops.attention import _xla_attention
 from dreamlab_tpu_torch.ops import attention as tattn
 from dreamlab_tpu_torch.ops import flash_attention as tfa
+from dreamlab_tpu_torch.ops import flash_group as tfg
 
 # [B, N, H, D] of every K1 self-attention site: SD1.5 at 512² (txt2img,
 # img2img, styles, ControlNet's trunk, the mesh's data axis; batch 8 on the
@@ -161,3 +166,87 @@ def test_the_tile_rule_reads_no_batch(n, h, d):
     assert c != 3 or d <= 64
     assert c != 1 or d <= 80
     assert tfa.wgmma_consumers(n, h, d, sms=tfa.H100_SMS) == c
+
+
+# [B, N, H, D, pack] the head-group kernel is given: the probes' K4 shapes
+# (pack from pack_geometry) and K6's, and the census shapes whose pack_geometry
+# gives a group (chip_smoke.py's time_group): SD1.5 level 1, SDXL's levels,
+# 1344x768, the refiner's level 1 and the mesh's model axis
+GROUP_SHAPES = [
+    (8, 4096, 6, 40, 3), (2, 4096, 10, 64, 2),
+    (1, 4096, 8, 40, 2), (1, 4096, 10, 64, 2), (1, 1024, 20, 64, 2),
+    (1, 4032, 10, 64, 2), (1, 1008, 20, 64, 2), (1, 4096, 12, 64, 2), (1, 4096, 4, 40, 2),
+]
+
+
+@pytest.mark.parametrize("layout", [_packed, _contiguous], ids=["packed", "contiguous"])
+@pytest.mark.parametrize("b,n,h,d,pack", GROUP_SHAPES)
+def test_every_group_shape_takes_the_wgmma_group_route(layout, b, n, h, d, pack):
+    assert tfa.pack_geometry(h, d)[0] == pack
+    q, k, v = layout(b, n, h, d)
+    assert tfg.route(q, k, v, pack) == "wgmma"
+
+
+def test_a_group_token_stride_tma_cannot_take_goes_to_mma():
+    """Token stride 6 * 40 + 4 = 244 elements: 488 bytes, not a multiple of 16."""
+    buf = torch.empty((1, 256, 6 * 40 + 4), dtype=torch.bfloat16)
+    q = buf[:, :, :240].unflatten(2, (6, 40))
+    assert q.stride() == (256 * 244, 244, 40, 1)
+    k = torch.empty((1, 256, 6, 40), dtype=torch.bfloat16)
+    assert tfg.route(k, k, k, 3) == "wgmma"
+    assert tfg.route(q, k, k, 3) == tfg.route(k, q, k, 3) == tfg.route(k, k, q, 3) == "mma"
+
+
+def test_an_unaligned_group_base_goes_to_mma():
+    buf = torch.empty(256 * 4 * 64 + 8, dtype=torch.bfloat16)
+    q = buf[1:1 + 256 * 4 * 64].view(1, 256, 4, 64)
+    k = buf[8:8 + 256 * 4 * 64].view(1, 256, 4, 64)  # 16 bytes in: aligned
+    assert tfg.route(k, k, k, 2) == "wgmma"
+    assert tfg.route(q, k, k, 2) == "mma"
+
+
+@pytest.mark.parametrize("d,pack", [(20, 2), (7, 3), (36, 3)])
+def test_group_head_dims_tma_cannot_take_go_to_mma(d, pack):
+    q, k, v = _contiguous(1, 256, 6, d)
+    assert tfg.route(q, k, v, pack) == "mma"
+
+
+@pytest.mark.parametrize("b,n,h,d,pack", [(8, 4096, 6, 40, 3), (1, 256, 4, 20, 2)])
+def test_fp32_groups_go_to_scalar(b, n, h, d, pack):
+    q, k, v = _contiguous(b, n, h, d, torch.float32)
+    assert tfg.route(q, k, v, pack) == "scalar"
+
+
+@pytest.mark.parametrize("h,d,pack", [
+    (6, 40, 4),   # no kernel groups four heads
+    (8, 40, 3),   # 8 heads do not split into threes
+    (6, 48, 3),   # d over pack 3's 40
+    (4, 80, 2),   # d over pack 2's 64
+])
+def test_the_group_route_refuses_a_group_the_kernels_do_not_take(h, d, pack):
+    q, k, v = _contiguous(1, 128, h, d)
+    with pytest.raises(ValueError):
+        tfg.route(q, k, v, pack)
+    with pytest.raises(ValueError):
+        tfg.flash_group(q, k, v, pack=pack)
+
+
+def test_cpu_groups_compute_the_plain_version_and_count_nothing():
+    """On the CPU flash_group is flash_group_plain (the JAX probes' Pallas
+    kernels hold it in tests/test_torch_probes.py), on the packed views the
+    wgmma route would read on the card."""
+    rs = np.random.RandomState(5)
+    buf = torch.from_numpy(rs.randn(2, 256, 3, 6 * 40).astype(np.float32)).bfloat16()
+    q, k, v = (buf[:, :, i].view(2, 256, 6, 40) for i in range(3))
+    assert tfg.route(q, k, v, 3) == "wgmma"
+    before = (tfg.LAUNCHES, dict(tfg.ROUTE_LAUNCHES))
+    got = tfg.flash_group(q, k, v, pack=3)
+    assert (tfg.LAUNCHES, tfg.ROUTE_LAUNCHES) == before
+    assert torch.equal(got, tfg.flash_group_plain(q, k, v, 40 ** -0.5))
+
+
+def test_the_group_launch_refuses_cpu_tensors():
+    """``launch`` runs a kernel or raises: no plain version behind it."""
+    q, k, v = _contiguous(1, 128, 6, 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfg.launch(q, k, v, pack=3, scale=40 ** -0.5)

@@ -40,7 +40,7 @@ from dreamlab_tpu_torch.engine.mode_config import ModeConfigError, ModeConfigMan
 from dreamlab_tpu_torch.engine.model_registry import ModelRegistry
 from dreamlab_tpu_torch.engine.worker_pool import (CustomJob, GenerationJob, QueueFullError,
                                                    WorkerPool)
-from dreamlab_tpu_torch.pipeline import DeviceLock, LCMPipeline
+from dreamlab_tpu_torch.pipeline import DeviceLock, LCMPipeline, device_lock, quiesced
 from dreamlab_tpu_torch.utils import yaml_lite
 from dreamlab_tpu_torch.utils.safetensors import save_file
 from tests.test_torch_port_img2img import one_torch_thread, port_bundle_of  # noqa: F401
@@ -945,6 +945,48 @@ def test_device_lock_excludes_captures_from_launch_sections():
     assert state == {"shared": 0, "exclusive": 0, "bad": 0}
     with lock.shared(), pytest.raises(RuntimeError, match="exclusively"):
         with lock.exclusive():
+            pass
+
+
+def test_quiesced_waits_for_launch_sections_and_holds_off_new_ones():
+    """``quiesced()`` (the profiler's start and stop) waits for every launch
+    section in flight on any device lock taken so far, and a section that
+    starts while it is held waits until it ends; it nests in nothing."""
+    lock = device_lock("cpu")
+    inside, release, order = threading.Event(), threading.Event(), []
+
+    def section(name, started=None):
+        with lock.shared():
+            order.append(name)
+            if started is not None:
+                started.set()
+                release.wait(10)
+
+    def quiet():
+        with quiesced():
+            order.append("quiet")
+            time.sleep(0.2)  # a second section meanwhile must wait
+            order.append("quiet ends")
+
+    first = threading.Thread(target=section, args=("first", inside))
+    first.start()
+    assert inside.wait(10)
+    q = threading.Thread(target=quiet)
+    q.start()
+    q.join(0.2)
+    assert q.is_alive() and order == ["first"]  # waiting for the section in flight
+    release.set()
+    first.join(10)
+    while "quiet" not in order and q.is_alive():
+        time.sleep(0.001)
+    second = threading.Thread(target=section, args=("second",))
+    second.start()
+    for t in (q, second):
+        t.join(10)
+        assert not t.is_alive()
+    assert order == ["first", "quiet", "quiet ends", "second"]
+    with lock.shared(), pytest.raises(RuntimeError, match="exclusively"):
+        with quiesced():
             pass
 
 

@@ -247,6 +247,15 @@ def test_probe_main_needs_a_gpu(monkeypatch, name):
         mod.main()
 
 
+@pytest.mark.parametrize("name", ["profiler_race", "yume_loop"])
+def test_hang_hunt_main_needs_a_gpu(monkeypatch, name):
+    """The card-only hang hunts refuse a machine without one before any work."""
+    mod = importlib.import_module(f"dreamlab_tpu_torch.scripts.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        mod.main(["--seconds", "1"])
+
+
 # ---------------------------------------------------------------------------
 # the probes' bf16 check limits at N = M = 4096
 # ---------------------------------------------------------------------------
