@@ -58,6 +58,10 @@ of S >= 2 steps runs steps [0, k) on the base, k = round(S *
 refiner on the device, and the refiner runs [k, S) and decodes: the hint
 and the style condition the base segment, progress rides the refiner's.
 Ensemble requests run solo (``supports_batching``, ``batchable``).
+
+Spans (``utils/tracing.py``): ``png.encode`` around each image's encoding,
+``worker.noise`` around a coalesced batch's per-row noise, ``style.apply``
+around a style's merge or restore.
 """
 
 from __future__ import annotations
@@ -66,7 +70,6 @@ import contextlib
 import logging
 import os
 import threading
-import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -75,6 +78,7 @@ import torch
 
 from .. import lora
 from ..pipeline import LCMPipeline, device_lock
+from ..utils import tracing
 from ..utils.png import encode_png
 from .base import GenSpec
 from .model_registry import get_model_registry
@@ -100,6 +104,14 @@ def _parameters_text(spec: GenSpec, seed: int, steps: int) -> str:
 
 def _new_seed() -> int:
     return int(np.random.randint(0, 2**31 - 1))
+
+
+def _png(image: np.ndarray, metadata=None) -> bytes:
+    """``encode_png`` of one image, in a ``png.encode`` span."""
+    with tracing.span("png.encode") as s:
+        data = encode_png(image, metadata)
+        s.attrs["bytes"] = len(data)
+    return data
 
 
 class CudaPipelineWorker:
@@ -157,10 +169,14 @@ class CudaPipelineWorker:
             key = None if style is None else (sdef.path, sdef.strength_for_level(level))
             if key != self._fleet_style:
                 self._fleet_style = None  # what a failed merge leaves: the base weights
-                apply_lora(*(key or (None,)))
+                with tracing.span("style.apply", style=style):
+                    apply_lora(*(key or (None,)))
                 self._fleet_style = key
             return
-        with device_lock(self.pipeline.device).shared():
+        if style is None and not self._active_paths:
+            return  # unstyled already
+        with device_lock(self.pipeline.device).shared(), \
+                tracing.span("style.apply", style=style) as applying:
             params = self.pipeline.unet_params
             # back to base first: the next style may not touch every leaf this one wrote
             lora.write_leaves(params, {p: self._base[p] for p in self._active_paths})
@@ -168,7 +184,6 @@ class CudaPipelineWorker:
             if style is None:
                 return
             scale = sdef.strength_for_level(level)
-            t0 = time.perf_counter()
             key = (sdef.path, scale)
             cached = self._merged_cache.get(key)
             if cached is not None:
@@ -185,9 +200,11 @@ class CudaPipelineWorker:
             self._active_paths = tuple(values)
             if cached is None:
                 self._merged_put(key, style, level, values)
-            logger.info("style %s level %d (scale %.2f) %s in %.0f ms", style, level, scale,
-                        "applied from the cache" if cached is not None else "merged",
-                        1e3 * (time.perf_counter() - t0))
+            applying.attrs["cached"] = cached is not None
+        took = applying.ms()
+        logger.info("style %s level %d (scale %.2f) %s%s", style, level, scale,
+                    "applied from the cache" if cached is not None else "merged",
+                    "" if took is None else f" in {took:.0f} ms")
 
     @contextlib.contextmanager
     def unstyled(self):
@@ -292,13 +309,13 @@ class CudaPipelineWorker:
         def finalize() -> Tuple[bytes, int]:
             res.wait()
             meta = {"parameters": _parameters_text(spec, res.seed, spec.num_inference_steps)}
-            return encode_png(res.images[0], meta), res.seed
+            return _png(res.images[0], meta), res.seed
 
         return finalize
 
     def run_job_with_latents(self, spec: GenSpec) -> Tuple[bytes, int, bytes]:
         res = self._generate(spec)
-        return encode_png(res.images[0]), res.seed, latents_to_fingerprint(res.latents)
+        return _png(res.images[0]), res.seed, latents_to_fingerprint(res.latents)
 
     def run_img2img(self, spec: GenSpec, image: np.ndarray, *, strength: float = 0.5,
                     mask: Optional[np.ndarray] = None) -> Tuple[bytes, int]:
@@ -321,7 +338,7 @@ class CudaPipelineWorker:
         meta = {"parameters": (f"{spec.prompt}\nSteps: {spec.num_inference_steps}, "
                                f"CFG scale: {spec.guidance_scale}, Seed: {res.seed}, "
                                f"Strength: {strength}")}
-        return encode_png(res.images[0], meta), res.seed
+        return _png(res.images[0], meta), res.seed
 
     def batchable(self, a: GenSpec, b: GenSpec) -> bool:
         """Specs that can share one batched call: same shape, schedule,
@@ -367,10 +384,11 @@ class CudaPipelineWorker:
         h_lat, w_lat = height // pipe.vae_scale, width // pipe.vae_scale
         steps = first.num_inference_steps
         lats, noises = [], []
-        for seed in seeds:
-            lat, noise = pipe._sample_noise(seed, 1, h_lat, w_lat, steps, 1.0)
-            lats.append(lat[0])
-            noises.append(noise[:, 0])
+        with tracing.span("worker.noise", rows=len(seeds)):
+            for seed in seeds:
+                lat, noise = pipe._sample_noise(seed, 1, h_lat, w_lat, steps, 1.0)
+                lats.append(lat[0])
+                noises.append(noise[:, 0])
         with self._lock:
             self._apply_style(first.style, first.style_level)
             try:
@@ -391,7 +409,7 @@ class CudaPipelineWorker:
 
         def finalize() -> List[Tuple[bytes, int]]:
             res.wait()
-            return [(encode_png(res.images[i], {"parameters": _parameters_text(s, seed, steps)}),
+            return [(_png(res.images[i], {"parameters": _parameters_text(s, seed, steps)}),
                      seed) for i, (s, seed) in enumerate(zip(specs, seeds))]
 
         return finalize

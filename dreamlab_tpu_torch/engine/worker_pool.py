@@ -23,6 +23,14 @@ Where the card asks for more than the JAX package does:
   graphs, collects and empties the CUDA cache with the device lock held
   exclusively, so the next load's ``can_fit`` reads the freed bytes.
 
+The pool records its phases as spans (``utils/tracing.py``): a job's wait
+in the queue (``pool.queued``), coalescing (``pool.collect``), each
+pipelined dispatch (``pool.dispatch``, its jobs and rows) and each settle
+(``pool.settle``, ``overlapped`` where a later dispatch went to the device
+first), and counts, as totals since start that outlive the recorder's
+ring, ``pool.jobs``, ``pool.dispatches``, ``pool.rows``,
+``pool.rejected_full`` and ``pool.cancelled``.
+
 Per-request mode routing (tenants) is refused under the multi-rank router
 (``parallel/multihost_router.py``), as in the JAX pool: a tenant worker
 built here would exist on rank 0 only, and its jobs would desynchronize the
@@ -40,6 +48,8 @@ import time
 import uuid
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, Optional
+
+from ..utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -68,6 +78,7 @@ class Job(abc.ABC):
         self.job_id = uuid.uuid4().hex[:12]
         self.future: Future = Future()
         self.submitted_at = time.time()
+        self.queued_ns: Optional[int] = None  # tracing.now() when submitted
 
     @abc.abstractmethod
     def execute(self, worker) -> Any:
@@ -113,6 +124,12 @@ class CustomJob(Job):
 
     def execute(self, worker):
         return self.fn(worker, *self.args, **self.kwargs)
+
+
+def _taken(job) -> None:
+    """The pool thread took ``job`` from the queue: its wait there."""
+    if job is not None:
+        tracing.record("pool.queued", job.queued_ns, tracing.now(), job=job.job_id)
 
 
 class QueueFullError(Exception):
@@ -577,6 +594,7 @@ class WorkerPool:
                     continue
                 break
             self.queue.task_done()
+            _taken(nxt)
             if (
                 nxt is not None
                 and isinstance(nxt, GenerationJob)
@@ -590,7 +608,8 @@ class WorkerPool:
             ):
                 if nxt.future.set_running_or_notify_cancel():
                     batch.append(nxt)
-                # cancelled joiners are simply dropped
+                else:  # cancelled joiners are simply dropped
+                    tracing.count("pool.cancelled")
             else:
                 pending.append(nxt)
                 break
@@ -623,16 +642,33 @@ class WorkerPool:
         # Futures still complete in strict FIFO order: the previous batch
         # settles immediately after the next one dispatches, and everything
         # non-batchable settles it first.
-        inflight = None  # (jobs, finalize)
+        inflight = None  # (jobs, finalize, its dispatch's number)
+        dispatched = 0  # pipelined dispatches so far
+
+        def dispatch(jobs, call):
+            """``call()``, the worker's pipelined dispatch of ``jobs``, and
+            its number."""
+            nonlocal dispatched
+            with tracing.span("pool.dispatch", jobs=[j.job_id for j in jobs], rows=len(jobs)):
+                finalize = call()
+            dispatched += 1
+            tracing.count("pool.dispatches")
+            tracing.count("pool.rows", len(jobs))
+            return finalize, dispatched
 
         def settle_inflight():
             nonlocal inflight
             if inflight is None:
                 return
-            jobs, finalize = inflight
+            jobs, finalize, number = inflight
             inflight = None
+            # a later dispatch went to the device before this settle began:
+            # the copy and encoding hide behind its replay
+            overlapped = dispatched > number
             try:
-                results = finalize()
+                with tracing.span("pool.settle", jobs=[j.job_id for j in jobs],
+                                  rows=len(jobs), overlapped=overlapped):
+                    results = finalize()
                 for j, r in zip(jobs, results):
                     j.future.set_result(r)
             except Exception as e:
@@ -655,11 +691,13 @@ class WorkerPool:
                         settle_inflight()
                         continue
                     self.queue.task_done()
+                    _taken(job)
                 if job is None:
                     break
                 # client gone (disconnect/timeout cancelled the future):
                 # skip the job instead of burning device time
                 if not job.future.set_running_or_notify_cancel():
+                    tracing.count("pool.cancelled")
                     if not pending and self.queue.empty():
                         settle_inflight()
                     continue
@@ -680,11 +718,13 @@ class WorkerPool:
                     continue
 
                 if self._can_batch(job, worker):
-                    batch = self._collect_batch(
-                        job, pending,
-                        window=self.batch_window if inflight else 0.0,
-                        worker=worker,
-                    )
+                    with tracing.span("pool.collect") as collecting:
+                        batch = self._collect_batch(
+                            job, pending,
+                            window=self.batch_window if inflight else 0.0,
+                            worker=worker,
+                        )
+                        collecting.attrs["rows"] = len(batch)
                     if len(batch) > 1:
                         runner = getattr(
                             worker, "run_jobs_pipelined", None
@@ -693,7 +733,9 @@ class WorkerPool:
                             # dispatch the new batch BEFORE settling the
                             # previous one — that's the overlap
                             try:
-                                finalize = runner([j.spec for j in batch])
+                                finalize, number = dispatch(
+                                    batch, lambda: runner([j.spec for j in batch])
+                                )
                             except Exception as e:
                                 logger.exception("batched dispatch failed")
                                 settle_inflight()  # FIFO first
@@ -701,7 +743,7 @@ class WorkerPool:
                                     j.future.set_exception(e)
                                 continue
                             settle_inflight()
-                            inflight = (batch, finalize)
+                            inflight = (batch, finalize, number)
                             if not pending and self.queue.empty():
                                 settle_inflight()
                             continue
@@ -725,14 +767,16 @@ class WorkerPool:
                     and hasattr(worker, "run_job_pipelined")
                 ):
                     try:
-                        fin = worker.run_job_pipelined(job.spec)
+                        fin, number = dispatch(
+                            [job], lambda: worker.run_job_pipelined(job.spec)
+                        )
                     except Exception as e:
                         logger.exception("job %s failed", job.job_id)
                         settle_inflight()  # FIFO: earlier job resolves first
                         job.future.set_exception(e)
                         continue
                     settle_inflight()
-                    inflight = ([job], lambda fin=fin: [fin()])
+                    inflight = ([job], lambda fin=fin: [fin()], number)
                     # a lone request must not wait for the idle tick: only
                     # keep it in flight if more work is already queued
                     if not pending and self.queue.empty():
@@ -764,12 +808,15 @@ class WorkerPool:
     def submit_job(self, job: Job) -> Future:
         if self._shutdown.is_set():
             raise RuntimeError("pool is shut down")
+        job.queued_ns = tracing.now()
         try:
             self.queue.put_nowait(job)
         except queue.Full:
+            tracing.count("pool.rejected_full")
             raise QueueFullError(
                 f"queue full ({self.queue.maxsize} jobs)"
             ) from None
+        tracing.count("pool.jobs")
         return job.future
 
     def switch_mode(

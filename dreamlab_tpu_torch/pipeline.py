@@ -95,6 +95,11 @@ the host. So a bucket can be captured on one thread while others replay,
 merge and upscale, and none of their launches lands inside the capture.
 One pipeline's captures and dispatches are serialized by its own lock.
 
+Spans (``utils/tracing.py``): ``pipeline.stage`` around host staging,
+``graph.replay`` around a replay's launch section and ``graph.capture``
+around a capture (counted in ``pipeline.captures``), each naming its
+bucket, and ``device.wait`` around a pipelined result's wait.
+
 A mesh (``LCMPipeline(mesh=, tensor_parallel=)``, one rank per device,
 ``parallel/sharding.py``): every rank stages the whole request batch from
 the same seeds (so the same host noise, and under device RNG the same
@@ -114,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import logging
 import os
@@ -138,6 +144,7 @@ from .scheduler.lcm import (
     schedule_on,
     slice_schedule,
 )
+from .utils import tracing
 from .utils.tokenizer import CLIPTokenizer
 
 logger = logging.getLogger(__name__)
@@ -195,7 +202,8 @@ class GenerationResult:
         the result is pipelined)."""
         if self._pending is not None:
             ready, images, latents = self._pending
-            ready.synchronize()
+            with tracing.span("device.wait"):
+                ready.synchronize()
             self.images, self.latents = images.numpy(), latents.numpy()
             self._pending = None
         return self
@@ -304,6 +312,19 @@ class _Staged:
     progress_token: int = 0
     rows: Optional[slice] = None
     batch: int = 0
+
+
+def _staging(stage: Callable[..., _Staged]) -> Callable[..., _Staged]:
+    """A staging method, in a ``pipeline.stage`` span that names the bucket."""
+
+    @functools.wraps(stage)
+    def staged(self, *args, **kwargs) -> _Staged:
+        with tracing.span("pipeline.stage") as s:
+            out = stage(self, *args, **kwargs)
+            s.attrs["bucket"] = out.key
+        return out
+
+    return staged
 
 
 def _extras(key: BucketKey) -> Dict[str, Any]:
@@ -482,7 +503,8 @@ class _GraphProgram:
         key = staged.key
         progress = _extras(key).get("progress")
         self.events = self.slots = None
-        with torch.inference_mode(), device_lock(dev).exclusive():
+        with tracing.span("graph.capture", bucket=key), torch.inference_mode(), \
+                device_lock(dev).exclusive():
             self.inputs = _device_inputs(pipe, staged)
             if progress is not None:
                 self.timesteps = pipe._key_schedule(key).timesteps
@@ -507,6 +529,7 @@ class _GraphProgram:
                 self.outputs = pipe._program(key, self.inputs, progress=sink)
             torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
+        tracing.count("pipeline.captures")
         # what this capture added to the shared pool (later buckets reuse
         # the blocks earlier ones freed, so they add less)
         self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -520,7 +543,7 @@ class _GraphProgram:
     def __call__(self, pipe: "LCMPipeline", staged: _Staged) -> GenerationResult:
         lock = device_lock(pipe.device)
         with torch.inference_mode():
-            with lock.shared():
+            with lock.shared(), tracing.span("graph.replay", bucket=staged.key):
                 for name, v in staged.inputs.items():
                     self.inputs[name].copy_(_pinned(v), non_blocking=True)
                 if staged.key[5] == "device":
@@ -985,6 +1008,7 @@ class LCMPipeline:
             inputs["time_ids"] = time_ids
         return mode, inputs
 
+    @_staging
     def _stage(self, prompt, *, height: int = 512, width: int = 512,
                num_inference_steps: int = 4,
                original_inference_steps: Optional[int] = None,
@@ -1093,6 +1117,7 @@ class LCMPipeline:
             raise ValueError(f"control_image has {hint.shape[0]} rows for batch {bsz}")
         return np.ascontiguousarray(hint, np.float32)
 
+    @_staging
     def _stage_img2img(self, prompt, init_image, *, mask: Optional[np.ndarray] = None,
                        strength: float = 0.5, aesthetic_score: float = 6.0,
                        num_inference_steps: int = 4,

@@ -53,6 +53,7 @@ from typing import Optional
 
 from ..engine.base import GenSpec
 from ..engine.worker_pool import CustomJob, GenerationJob, QueueFullError
+from ..utils import tracing
 from . import http as web
 from .request_logger import make_request_logger_middleware
 from .schemas import GenerateRequest, ValidationError
@@ -298,18 +299,24 @@ async def run_generate(state: ServerState, req: GenerateRequest, progress_cb=Non
     if progress_cb is not None:
         spec.progress_cb = progress_cb
 
-    if state.pool is not None:
-        fut = state.pool.submit_job(GenerationJob(spec))
-    elif state.legacy is not None:
-        try:
-            fut = state.legacy.submit(spec)
-        except Exception as e:
-            if "Full" in type(e).__name__ or "full" in str(e):
-                raise QueueFullError("queue full") from e
-            raise
-    else:
+    if state.pool is None and state.legacy is None:
         raise _json_error(web.HTTPServiceUnavailable, "no generation backend loaded")
-    png, seed = await _await_future(fut, timeout=cfg.request_timeout)
+    job = GenerationJob(spec) if state.pool is not None else None
+    request_span = tracing.current()
+    if job is not None and request_span is not None:
+        request_span.attrs["job"] = job.job_id
+    # from the submit to the result back on the event loop
+    with tracing.span("http.await", job=None if job is None else job.job_id):
+        if job is not None:
+            fut = state.pool.submit_job(job)
+        else:
+            try:
+                fut = state.legacy.submit(spec)
+            except Exception as e:
+                if "Full" in type(e).__name__ or "full" in str(e):
+                    raise QueueFullError("queue full") from e
+                raise
+        png, seed = await _await_future(fut, timeout=cfg.request_timeout)
 
     headers = {
         "X-Seed": str(seed),

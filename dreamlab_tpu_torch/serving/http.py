@@ -37,6 +37,8 @@ import threading
 import urllib.parse
 from typing import Awaitable, Callable, Dict, List, Optional, Tuple
 
+from ..utils import tracing
+
 logger = logging.getLogger(__name__)
 
 _REASONS = {
@@ -287,6 +289,7 @@ class Request:
         self.path = urllib.parse.unquote(raw_path)
         self.query = dict(urllib.parse.parse_qsl(self.query_string, keep_blank_values=True))
         self.match_info: Dict[str, str] = {}
+        self.received_ns: Optional[int] = None  # tracing.now() once its head was read
         self.content_type, self._ct_params = _params(
             headers.get("Content-Type", "application/octet-stream"))
         self.charset = self._ct_params.get("charset")
@@ -538,6 +541,7 @@ class _Connection:
             while self.buf[:2] == b"\r\n":  # stray line breaks between requests
                 del self.buf[:2]
             head = await self._read_until(b"\r\n\r\n", _MAX_HEAD)
+            received = tracing.now()
         except _Disconnected:
             return None
         except ValueError:
@@ -567,8 +571,10 @@ class _Connection:
                 raise self._too_large(n)
             self._continue(headers)
             body = await self._read_exact(n) if n else b""
-        return Request(self.app, method.upper(), target, version, headers, body,
-                       self.writer, self)
+        request = Request(self.app, method.upper(), target, version, headers, body,
+                          self.writer, self)
+        request.received_ns = received
+        return request
 
     def _continue(self, headers: Headers) -> None:
         if headers.get("Expect", "").lower() == "100-continue":
@@ -663,22 +669,27 @@ class _Connection:
                     break
                 if request is None:
                     break
-                try:
-                    response = await self._run_handler(request)
-                except HTTPException as e:
-                    response = e
-                except (ConnectionError, _Disconnected):
-                    break
-                except Exception:
-                    logger.exception("unhandled error on %s %s", request.method, request.path)
-                    response = Response(text="500 Internal Server Error", status=500)
-                if response is None:
-                    break  # the client went away
-                if response.prepared:
-                    if getattr(response, "_writer", None) is not None:
-                        await response.write_eof()
-                else:
-                    await self._send(request, response)
+                # from its head read to its response's last byte written
+                with tracing.span("http.request", start=request.received_ns,
+                                  path=request.path) as served:
+                    try:
+                        response = await self._run_handler(request)
+                    except HTTPException as e:
+                        response = e
+                    except (ConnectionError, _Disconnected):
+                        break
+                    except Exception:
+                        logger.exception("unhandled error on %s %s", request.method,
+                                         request.path)
+                        response = Response(text="500 Internal Server Error", status=500)
+                    if response is None:
+                        break  # the client went away
+                    served.attrs["status"] = response.status
+                    if response.prepared:
+                        if getattr(response, "_writer", None) is not None:
+                            await response.write_eof()
+                    else:
+                        await self._send(request, response)
         except (ConnectionError, OSError, asyncio.IncompleteReadError):
             pass
         finally:

@@ -7,16 +7,20 @@ the JAX server's schema), ``/api/styles``, ``/api/models/load`` and
 ``/api/models/unload`` (501 unless ``DREAMLAB_MODE_CACHE`` > 1, then 409
 where the cache or the card has no room or the mode is active) and the
 profiler routes, which trace with ``torch.profiler`` and write a Chrome
-trace into the directory on stop. Pool, preload and evict calls run off the
-event loop.
+trace into the directory on stop. Pool, preload and evict calls and the
+profiler's start, stop and export run off the event loop. ``/api/trace`` is the
+port's own: the span recorder's counters and newest spans
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import json
 import logging
 
+from ..utils import tracing
 from . import http as web
 
 logger = logging.getLogger(__name__)
@@ -173,14 +177,70 @@ async def not_implemented(request: web.Request) -> web.Response:
     )
 
 
+async def trace_spans(request: web.Request) -> web.Response:
+    """GET /api/trace[?n=]: the recorder's counters and its newest ``n``
+    spans (default 1000) as Chrome trace events."""
+    try:
+        n = int(request.query.get("n", "1000"))
+    except ValueError:
+        n = -1
+    if n < 0:
+        raise _json_error(web.HTTPBadRequest, "n must be a whole number, 0 or more")
+    return web.json_response({"counters": tracing.counters(),
+                              "spans": tracing.chrome_events(n)})
+
+
 # ---------------------------------------------------------------------------
 # profiling: a torch.profiler trace of the host and the card, written as a
-# Chrome trace (trace.json) into the directory when it stops. The profiler
-# starts and stops with no launch section in flight (``pipeline.quiesced``):
-# a stop beside another thread's graph replay can hang the process.
+# Chrome trace (trace.json) into the directory when it stops. It records
+# every thread's operators, and each span of the recorder as a range of its
+# name. The profiler starts and stops with no launch section in flight
+# (``pipeline.quiesced``): a stop beside another thread's graph replay can
+# hang the process. Start, stop and export run on the profiler's own
+# thread, one and the same for all three, whatever the profiler keeps per
+# thread. The stop and the export take seconds on the card; the loop serves
+# on meanwhile only where the profiler lets go of the GIL, which its stop
+# on the card mostly does not. Only that
+# thread changes ``_PROFILE`` once a route has handed it the work (``busy``
+# until it is done). The spans ``profiler.start``, ``profiler.stop`` (each
+# with its wait for the launch sections) and ``profiler.export`` time them.
 # ---------------------------------------------------------------------------
 
-_PROFILE = {"dir": None, "prof": None, "stopped": False}
+_PROFILE = {"dir": None, "prof": None, "stopped": False, "busy": False}
+_PROFILER_THREAD = concurrent.futures.ThreadPoolExecutor(max_workers=1,
+                                                         thread_name_prefix="profiler")
+
+
+def _all_threads():
+    """Kineto's setting that records the ranges and operators of every
+    thread (by default only the starting thread's); None where this torch
+    lacks it, and then the trace holds the card's activity and the profiler
+    thread's own operators."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
+async def _on_profiler_thread(fn, *args):
+    return await asyncio.get_running_loop().run_in_executor(_PROFILER_THREAD, fn, *args)
+
+
+def _start(prof) -> None:
+    from ..pipeline import quiesced
+
+    try:
+        with tracing.span("profiler.start"), quiesced():
+            prof.start()
+        _PROFILE.update(prof=prof, stopped=False)
+        tracing.annotate(True)
+    except Exception:
+        _PROFILE["dir"] = None
+        raise
+    finally:
+        _PROFILE["busy"] = False
 
 
 async def profiler_start(request: web.Request) -> web.Response:
@@ -190,8 +250,6 @@ async def profiler_start(request: web.Request) -> web.Response:
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from ..pipeline import quiesced
 
     # the body is read BEFORE the running check: no await between check and
     # set, so two concurrent starts cannot both pass
@@ -209,36 +267,52 @@ async def profiler_start(request: web.Request) -> web.Response:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    _PROFILE.update(dir=trace_dir, busy=True)
     try:
         os.makedirs(trace_dir, exist_ok=True)
-        prof = profile(activities=activities)
-        with quiesced():
-            prof.start()
+        prof = profile(activities=activities, experimental_config=_all_threads())
+    except Exception as e:
+        _PROFILE.update(dir=None, busy=False)
+        return web.json_response({"detail": f"start_trace failed: {e}"}, status=500)
+    try:
+        await _on_profiler_thread(_start, prof)
     except Exception as e:
         return web.json_response({"detail": f"start_trace failed: {e}"}, status=500)
-    _PROFILE.update(dir=trace_dir, prof=prof, stopped=False)
     return web.json_response({"status": "tracing", "dir": trace_dir})
 
 
-async def profiler_stop(request: web.Request) -> web.Response:
+def _stop_and_export() -> str:
+    """The trace's directory once stopped and written; the marker stays on a
+    failure, so that a retry remains possible."""
     import os
 
     from ..pipeline import quiesced
 
-    if _PROFILE["dir"] is None:
-        return web.json_response({"detail": "no trace running"}, status=409)
-    prof = _PROFILE["prof"]
     try:
         if not _PROFILE["stopped"]:
-            with quiesced():
-                prof.stop()
+            tracing.annotate(False)
+            with tracing.span("profiler.stop"), quiesced():
+                _PROFILE["prof"].stop()
             _PROFILE["stopped"] = True
-        prof.export_chrome_trace(os.path.join(_PROFILE["dir"], "trace.json"))
+        trace_dir = _PROFILE["dir"]
+        with tracing.span("profiler.export"):
+            _PROFILE["prof"].export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        _PROFILE.update(dir=None, prof=None)
+        return trace_dir
+    finally:
+        _PROFILE["busy"] = False
+
+
+async def profiler_stop(request: web.Request) -> web.Response:
+    if _PROFILE["busy"]:
+        return web.json_response({"detail": "trace start or stop in progress"}, status=409)
+    if _PROFILE["dir"] is None:
+        return web.json_response({"detail": "no trace running"}, status=409)
+    _PROFILE["busy"] = True
+    try:
+        trace_dir = await _on_profiler_thread(_stop_and_export)
     except Exception as e:
-        # the marker stays: a retry must remain possible
         return web.json_response({"detail": f"stop_trace failed: {e}"}, status=500)
-    trace_dir = _PROFILE["dir"]
-    _PROFILE.update(dir=None, prof=None)
     return web.json_response({"status": "stopped", "dir": trace_dir})
 
 
@@ -254,3 +328,4 @@ def register_model_routes(app: web.Application):
     app.router.add_get("/api/styles", list_styles)
     app.router.add_post("/api/profiler/start", profiler_start)
     app.router.add_post("/api/profiler/stop", profiler_stop)
+    app.router.add_get("/api/trace", trace_spans)

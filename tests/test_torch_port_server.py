@@ -612,7 +612,8 @@ def test_request_logger_config(monkeypatch):
 
 def test_profiler_endpoints(srv, tmp_path):
     """POST /api/profiler/start and /stop: a torch.profiler trace written as
-    a Chrome trace into the directory; the JAX server's 409s."""
+    a Chrome trace into the directory, with the program's spans as ranges
+    (those of the pool's thread too); the JAX server's 409s."""
     p = srv.port("POST", "/api/profiler/start", *as_json({"dir": str(tmp_path / "trace")}))
     assert p.status == 200 and p.json()["status"] == "tracing"
     trace_dir = p.json()["dir"]
@@ -621,7 +622,10 @@ def test_profiler_endpoints(srv, tmp_path):
     p = srv.port("POST", "/api/profiler/stop")
     assert p.status == 200 and p.json() == {"status": "stopped", "dir": trace_dir}
     with open(os.path.join(trace_dir, "trace.json")) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert events
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"pool.dispatch", "png.encode"} <= ranges
     assert srv.port("POST", "/api/profiler/stop").status == 409
 
 
