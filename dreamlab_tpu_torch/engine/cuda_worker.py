@@ -59,9 +59,11 @@ refiner on the device, and the refiner runs [k, S) and decodes: the hint
 and the style condition the base segment, progress rides the refiner's.
 Ensemble requests run solo (``supports_batching``, ``batchable``).
 
-Spans (``utils/tracing.py``): ``png.encode`` around each image's encoding,
-``worker.noise`` around a coalesced batch's per-row noise, ``style.apply``
-around a style's merge or restore.
+Spans (``utils/tracing.py``): ``png.encode`` around each image's encoding
+(its ``bytes`` and deflate ``bands``; counters ``png.bands``, the bands in
+all, and ``png.banded``, the encodes of two bands or more), ``worker.noise``
+around a coalesced batch's per-row noise, ``style.apply`` around a style's
+merge or restore.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ import torch
 from .. import lora
 from ..pipeline import LCMPipeline, device_lock
 from ..utils import tracing
-from ..utils.png import encode_png
+from ..utils.png import bands, encode_png
 from .base import GenSpec
 from .model_registry import get_model_registry
 
@@ -108,9 +110,13 @@ def _new_seed() -> int:
 
 def _png(image: np.ndarray, metadata=None) -> bytes:
     """``encode_png`` of one image, in a ``png.encode`` span."""
-    with tracing.span("png.encode") as s:
+    n = bands(image.shape)
+    with tracing.span("png.encode", bands=n) as s:
         data = encode_png(image, metadata)
         s.attrs["bytes"] = len(data)
+    tracing.count("png.bands", n)
+    if n > 1:
+        tracing.count("png.banded")
     return data
 
 

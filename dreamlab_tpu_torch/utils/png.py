@@ -4,17 +4,31 @@ The encoder is the port's counterpart of
 ``dreamlab_tpu/engine/tpu_worker.py::png_encode`` and its native encoder
 (``dreamlab_tpu/native/pngenc.c``): the same choices (the "Up" row filter,
 zlib level 1) and the same ``tEXt`` metadata chunks right after IHDR, which
-the UI reads to resume a generation's parameters. The decoder reads what
-the super-resolution service takes in without PIL: 8-bit, non-interlaced
-gray, gray + alpha, RGB, RGBA and palette images, every row filter, every
-chunk's CRC checked. No PIL and no C build.
+the UI reads to resume a generation's parameters.
+
+The IDAT stream is deflated in bands of whole rows, one band a task on a
+process-wide thread pool (zlib lets go of the GIL while it deflates), as
+pigz does across a file: each band is a raw deflate primed with the 32 KiB
+of filtered stream before it and ended by a sync flush (the last by the
+stream's end), and the bands are joined behind one zlib header and the
+Adler-32 of the whole stream. So it is one standard zlib stream in one IDAT
+chunk. A band's rows follow from the row's width alone (``bands``), so an
+image gives the same bytes on any host, with any number of threads; an
+image of fewer than two bands is one ``zlib.compress`` call.
+
+The decoder reads what the super-resolution service takes in without PIL:
+8-bit, non-interlaced gray, gray + alpha, RGB, RGBA and palette images,
+every row filter, every chunk's CRC checked. No PIL and no C build.
 """
 
 from __future__ import annotations
 
+import os
 import struct
+import threading
 import zlib
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -22,6 +36,15 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels -> PNG color type (gray, RGB, RGBA)
 # color type -> channels of the filtered rows (gray, RGB, palette, gray + alpha, RGBA)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Filtered bytes a deflate band aims at (the whole rows nearest it): of 64 and
+# 128 KiB, 128 encoded 512² and 1024² images faster on an H100's 8-core host
+# (PERF.md).
+BAND_BYTES = 128 << 10
+_WINDOW = 32 << 10  # deflate's window: the dictionary a band is primed with
+_ADLER_BASE = 65521
+
+_executor: Optional[ThreadPoolExecutor] = None
+_executor_lock = threading.Lock()
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:
@@ -34,6 +57,73 @@ def text_chunk(keyword: str, value: str) -> bytes:
     """A PNG tEXt chunk (latin-1 payload per the spec)."""
     return _chunk(b"tEXt", keyword.encode("latin-1") + b"\x00"
                   + value.encode("latin-1", errors="replace"))
+
+
+def _pool() -> ThreadPoolExecutor:
+    """The process's band pool, made on first use: a thread for each CPU the
+    process may run on."""
+    global _executor
+    with _executor_lock:
+        if _executor is None:
+            _executor = ThreadPoolExecutor(len(os.sched_getaffinity(0)),
+                                           thread_name_prefix="png-band")
+        return _executor
+
+
+def _forget_pool() -> None:
+    # a forked child has none of its parent's threads: it makes its own pool
+    global _executor, _executor_lock
+    _executor, _executor_lock = None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pool)
+
+
+def _band_rows(row_bytes: int) -> int:
+    """Rows of a band whose filtered rows are ``row_bytes`` each (filter byte
+    included): the whole number nearest ``BAND_BYTES``, at least one."""
+    return max(1, round(BAND_BYTES / row_bytes))
+
+
+def bands(shape: Sequence[int]) -> int:
+    """The number of deflate bands ``encode_png`` cuts an image of this shape
+    ([H, W] or [H, W, C]) into; under 2 it makes one ``zlib.compress`` call."""
+    h, w = shape[0], shape[1]
+    c = shape[2] if len(shape) > 2 else 1
+    return -(-h // _band_rows(w * c + 1))
+
+
+def _adler32_combine(a: int, b: int, n: int) -> int:
+    """The Adler-32 of two byte strings joined, from each one's Adler-32 and
+    the second's length ``n`` (zlib's ``adler32_combine``)."""
+    s1 = ((a & 0xFFFF) + (b & 0xFFFF) - 1) % _ADLER_BASE
+    s2 = ((a >> 16) + (b >> 16) + n * ((a & 0xFFFF) - 1)) % _ADLER_BASE
+    return s1 | s2 << 16
+
+
+def _deflate_band(raw: memoryview, start: int, end: int, level: int):
+    """Band ``raw[start:end]`` as raw deflate blocks primed with the window
+    before it, ended by a sync flush (by the stream's end for the last band),
+    and its Adler-32."""
+    primed = {"zdict": raw[max(0, start - _WINDOW):start]} if start else {}
+    z = zlib.compressobj(level, zlib.DEFLATED, -15, **primed)
+    band = raw[start:end]
+    body = z.compress(band) + z.flush(zlib.Z_FINISH if end == len(raw) else zlib.Z_SYNC_FLUSH)
+    return body, zlib.adler32(band), end - start
+
+
+def _deflate_banded(raw: memoryview, band_bytes: int, level: int) -> bytes:
+    """One zlib stream of ``raw``, its bands of ``band_bytes`` deflated on the
+    pool."""
+    pool = _pool()
+    futures = [pool.submit(_deflate_band, raw, start, min(start + band_bytes, len(raw)), level)
+               for start in range(0, len(raw), band_bytes)]
+    parts = [f.result() for f in futures]
+    check = parts[0][1]
+    for _, adler, n in parts[1:]:
+        check = _adler32_combine(check, adler, n)
+    return b"".join([zlib.compress(b"", level)[:2], *(body for body, _, _ in parts),
+                     struct.pack(">I", check)])
 
 
 def encode_png(arr: np.ndarray, metadata: Optional[Dict[str, str]] = None,
@@ -49,11 +139,15 @@ def encode_png(arr: np.ndarray, metadata: Optional[Dict[str, str]] = None,
     # filter type 2 ("Up"): each row minus the row above, mod 256
     up = rows.copy()
     up[1:] -= rows[:-1]
-    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1).tobytes()
+    raw = memoryview(np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1).reshape(-1))
+    if bands(arr.shape) < 2:
+        idat = zlib.compress(raw, level)
+    else:
+        idat = _deflate_banded(raw, _band_rows(w * c + 1) * (w * c + 1), level)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
     text = b"".join(text_chunk(k, v) for k, v in (metadata or {}).items())
     return (_SIGNATURE + _chunk(b"IHDR", ihdr) + text
-            + _chunk(b"IDAT", zlib.compress(raw, level)) + _chunk(b"IEND", b""))
+            + _chunk(b"IDAT", idat) + _chunk(b"IEND", b""))
 
 
 class UnsupportedPNG(ValueError):

@@ -7,7 +7,8 @@ asyncio task, ``record`` works across threads, and the ring stays bounded. A
 group and one solo job: one ``pool.queued`` a job, one ``pool.dispatch`` a
 call with its rows and a ``pipeline.stage`` inside, a ``pool.settle`` that
 holds one ``png.encode`` a row, ``overlapped`` only where a later dispatch
-came first, and counters that agree with the spans. A ``/generate`` through
+came first, and counters that agree with the spans; an encode's deflate
+bands on its span and in the ``png.bands`` and ``png.banded`` counters. A ``/generate`` through
 ``create_app``: its ``http.request`` holds an ``http.await`` of the pool's
 job, and ``GET /api/trace`` returns the counters and Chrome trace events.
 The profiler's start, stop and export run on one thread off the event
@@ -22,10 +23,12 @@ import os
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from dreamlab_tpu_torch import testing
+from dreamlab_tpu_torch.engine import cuda_worker
 from dreamlab_tpu_torch.engine.base import GenSpec
 from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
 from dreamlab_tpu_torch.engine.mode_config import ModeConfigManager
@@ -35,7 +38,7 @@ from dreamlab_tpu_torch.pipeline import LCMPipeline
 from dreamlab_tpu_torch.serving import app as tapp
 from dreamlab_tpu_torch.serving import model_routes
 from dreamlab_tpu_torch.serving.http import ServerThread
-from dreamlab_tpu_torch.utils import tracing
+from dreamlab_tpu_torch.utils import png, tracing
 from tests.test_torch_port_img2img import one_torch_thread  # noqa: F401
 
 TIMEOUT = 120
@@ -236,6 +239,22 @@ def test_pool_spans_of_a_coalesced_group_and_a_solo_job(pipe, tmp_path):
     assert counts["pool.dispatches"] == len(dispatches)
     assert counts["pool.rows"] == sum(d["attrs"]["rows"] for d in dispatches)
     assert "pool.rejected_full" not in counts and "pool.cancelled" not in counts
+
+
+@pytest.mark.parametrize("side", [512, 16])
+def test_png_encode_records_its_bands(side):
+    image = np.random.RandomState(side).randint(0, 256, (side, side, 3), np.uint8)
+    cuda_worker._png(image)  # counters from an earlier encode
+    before = tracing.counters()
+    data = cuda_worker._png(image, {"parameters": "x"})
+    after = tracing.counters()
+    (encode,) = tracing.spans(1)
+    assert encode["name"] == "png.encode" and encode["attrs"]["bytes"] == len(data)
+    n = encode["attrs"]["bands"]
+    assert n == png.bands(image.shape)
+    assert (n > 1) == (side == 512)
+    assert after["png.bands"] == before["png.bands"] + n
+    assert after.get("png.banded", 0) == before.get("png.banded", 0) + (side == 512)
 
 
 def test_pool_counts_rejected_and_cancelled_jobs(pipe, tmp_path):
