@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.batching import per_row
+from ..ops.batching import row_chunks
 from .configs import CLIPTextConfig
 from .layers import (
     init_embedding,
@@ -33,14 +33,15 @@ def _self_attention(p, x, mask, num_heads):
     k = linear(p["k"], x).reshape(b, n, num_heads, d)
     v = linear(p["v"], x).reshape(b, n, num_heads, d)
     # 77-token causal attention: small, so plain torch ops (the JAX package
-    # keeps it on XLA too); fp32 logits and softmax, one batch row at a time
+    # keeps it on XLA too); fp32 logits and softmax, batched where the card
+    # showed every row equal to its solo call (ops/batching.py)
 
     def attend(qr, kr, vr):
         logits = torch.einsum("bnhd,bmhd->bhnm", qr.float(), kr.float())
         probs = torch.softmax(logits * (d ** -0.5) + mask, dim=-1).to(vr.dtype)
         return torch.einsum("bhnm,bmhd->bnhd", probs.float(), vr.float())
 
-    out = per_row(attend, q, k, v)
+    out = row_chunks(("clip_attention", tuple(mask.shape)), attend, q, k, v)
     return linear(p["out"], out.to(x.dtype).reshape(b, n, c))
 
 

@@ -14,8 +14,10 @@ Layout, decided once here:
   and returns ``channels_last``, which ``permute(0, 2, 3, 1)`` turns back into
   NHWC-contiguous. The pipeline stores conv weights ``channels_last`` too.
 
-Convs, matmuls and the plain GroupNorm's reductions run one batch row at a
-time (``ops/batching.py``), so batching never changes a row.
+Convs, matmuls and the plain GroupNorm's reductions go through
+``ops/batching.py::row_chunks``, keyed by what the library's choice of
+algorithm can depend on: batched where the card has shown every row equal to
+its solo call, one row at a time elsewhere, so batching never changes a row.
 """
 
 from __future__ import annotations
@@ -25,8 +27,16 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.batching import per_row
+from ..ops.batching import row_chunks
 from ..ops.groupnorm import fused_group_norm_silu, group_norm_plain
+
+
+def _weight_sig(w):
+    return (tuple(w.shape), w.stride(), w.dtype)
+
+
+def _bias_sig(b):
+    return None if b is None else b.dtype
 
 
 def conv2d(params, x, *, stride: int = 1, padding=None):
@@ -45,18 +55,22 @@ def conv2d(params, x, *, stride: int = 1, padding=None):
         y = F.conv2d(xr.permute(0, 3, 1, 2), w, b, stride=stride, padding=pad)
         return y.permute(0, 2, 3, 1).contiguous()
 
-    return per_row(conv, x)
+    key = ("conv2d", _weight_sig(w), _bias_sig(b), stride, pad)
+    return row_chunks(key, conv, x)
 
 
 def linear(params, x):
     """params: {'w': [out, in], 'b': [out] (optional)}."""
-    return per_row(lambda xr: F.linear(xr, params["w"], params.get("b")), x)
+    w, b = params["w"], params.get("b")
+    return row_chunks(("linear", _weight_sig(w), _bias_sig(b)),
+                      lambda xr: F.linear(xr, w, b), x)
 
 
 def group_norm(params, x, *, groups: int = 32, eps: float = 1e-5):
     """GroupNorm over the channel axis of NHWC (or [..., C]), fp32 statistics."""
-    return per_row(lambda xr: group_norm_plain(xr, params["scale"], params["bias"],
-                                               groups=groups, eps=eps), x)
+    scale, bias = params["scale"], params["bias"]
+    return row_chunks(("group_norm", groups, scale.dtype),
+                      lambda xr: group_norm_plain(xr, scale, bias, groups=groups, eps=eps), x)
 
 
 def group_norm_silu(params, x, *, groups: int = 32, eps: float = 1e-5):

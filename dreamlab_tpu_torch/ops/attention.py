@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .batching import per_row
+from .batching import row_chunks
 from .flash_attention import attention_plain, flash_attention
 
 
@@ -34,11 +34,16 @@ def dot_product_attention(q, k, v, *, scale: Optional[float] = None,
 
     impl: "auto" (flash on CUDA when the shapes qualify), "flash", or "xla"
     (the plain path; the name is the JAX package's config value). The flash
-    kernel treats each row alone; the plain path's batched matmuls run one
-    row at a time (ops/batching.py).
+    kernel treats each row alone; the plain path's matmuls run batched where
+    the card showed every row equal to its solo call, else one row at a time
+    (ops/batching.py).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl == "flash" or (impl == "auto" and _flash_supported(q, k)):
         return flash_attention(q, k, v, scale=scale)
-    return per_row(lambda qr, kr, vr: attention_plain(qr, kr, vr, scale), q, k, v)
+    # a row's call holds its [H, N, M] scores up to three times in fp32
+    scratch = 12 * q.shape[2] * q.shape[1] * k.shape[1]
+    return row_chunks(("attention", scale),
+                      lambda qr, kr, vr: attention_plain(qr, kr, vr, scale), q, k, v,
+                      scratch=scratch)

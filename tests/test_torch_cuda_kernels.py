@@ -618,6 +618,43 @@ def test_pipelined_generate_and_styles_on_the_card(cuda, tmp_path):
         assert [f() for f in finals] == want
 
 
+def test_batched_library_calls_give_every_row_its_solo_bytes(cuda):
+    """The SD1.5 batch-8 bucket at 512² captured through the worker, its eager
+    run probing every key (``ops/batching.py``): some calls were captured
+    batched; each key decided batched, run on fresh seeded inputs of its
+    recorded shapes and strides, gives every row the bytes of that row's solo
+    call; and every row of the batch replay (PNG) equals its solo replay's."""
+    from dreamlab_tpu_torch import testing
+    from dreamlab_tpu_torch.engine.base import GenSpec
+    from dreamlab_tpu_torch.engine.cuda_worker import CudaPipelineWorker
+    from dreamlab_tpu_torch.ops import batching
+    from dreamlab_tpu_torch.pipeline import LCMPipeline
+    from dreamlab_tpu_torch.scripts.ab_batching import record_sites
+    from dreamlab_tpu_torch.utils import tracing
+
+    worker = CudaPipelineWorker(LCMPipeline(testing.random_bundle("sd15", seed=0,
+                                                                  device="cuda")))
+    specs = [GenSpec("a cat on a sofa", size="512x512", seed=100 + i) for i in range(8)]
+    batching.reset()
+    sites = {}
+    before = tracing.counters().get("batching.calls_batched", 0)
+    with record_sites(sites):
+        coalesced = worker.run_jobs(specs)
+    assert tracing.counters().get("batching.calls_batched", 0) > before
+    batched = [full for full, rows in batching.decisions().items() if rows > 1]
+    assert batched and all(rows in (1, 8) for rows in batching.decisions().values())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.inference_mode():
+        for full in batched:
+            xs = [torch.empty_strided(shape, stride, dtype=dtype, device="cuda")
+                  .normal_(generator=gen) for dtype, shape, stride in full[2:]]
+            out = sites[full].fn(*xs)
+            for i in range(8):
+                solo = sites[full].fn(*(x[i:i + 1] for x in xs))
+                assert batching.same_bytes(out[i:i + 1], solo), (full, i)
+    assert coalesced == [worker.run_job(s) for s in specs]
+
+
 def test_capture_on_one_thread_while_another_replays(cuda):
     """A bucket captured on one thread (device lock exclusive, the
     "thread_local" capture mode) while another thread replays another

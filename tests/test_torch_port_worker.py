@@ -78,7 +78,9 @@ def test_png_encoder_round_trips_and_matches_jax_pixels():
 
 def test_run_jobs_rows_equal_solo_runs(worker):
     """Byte-identical with oneDNN's convs on, whose algorithm choice depends on
-    the batch size: the library calls run one row at a time (ops/batching.py)."""
+    the batch size: on the CPU the library calls run one row at a time; on the
+    card batched only where every row equalled its solo call
+    (ops/batching.py)."""
     specs = [GenSpec("a cat", size="16x16", num_inference_steps=2, seed=s,
                      guidance_scale=g) for s, g in [(1, 1.0), (2, 4.0), (3, 8.0)]]
     assert all(worker.batchable(specs[0], s) for s in specs[1:])
