@@ -11,14 +11,13 @@ faulthandler writes the stacks and exits 1 without it). Phases:
 
 1. prints the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
 2. builds the CUDA kernels from ``dreamlab_tpu_torch/csrc`` (nvcc, sm_90a),
-   prints each kernel's registers and spills (ptxas) and its tensor-core
-   instructions (cuobjdump: HMMA for mma.sync, HGMMA for wgmma), and fails
-   if an instance of a bf16 flash kernel (K1's ``flash_wgmma_kernel`` and
-   the head-group ``flash_group_wgmma_kernel`` with HGMMA; the mma.sync
-   ``flash_mma_kernel`` and ``flash_group_mma_kernel`` with HMMA) has none
-   or spills, if ptxas ignored a ``setmaxnreg`` (C7508), serialized the
-   wgmmas of either wgmma kernel or gave an instance other registers at
-   entry than its ``setmaxnreg`` was sized for;
+   prints each kernel's registers and spills (ptxas) and its wgmma
+   instructions (cuobjdump: HGMMA), and fails if an instance of a bf16 flash
+   kernel (K1's ``flash_wgmma_kernel`` and the head-group
+   ``flash_group_wgmma_kernel``) has none or spills, if ptxas ignored a
+   ``setmaxnreg`` (C7508), serialized the wgmmas of either kernel or gave
+   an instance other registers at entry than its ``setmaxnreg`` was sized
+   for;
 3. holds each kernel against its plain PyTorch version on the card (K1
    also on q, k, v views at a packed projection's strides; bf16:
    the error beyond one bf16 rounding of the output,
@@ -30,14 +29,10 @@ faulthandler writes the stacks and exits 1 without it). Phases:
    request gives it (found by a census run on the pipeline's eager route;
    K1's self-attention inputs at the packed projection's strides, timed
    beside contiguous copies), beside its plain version, a library call and
-   its bound; K1 (the ``"wgmma"`` route at every census shape,
-   ``ops/flash_attention.py::route``) beside the mma.sync kernel it took
-   over from on the same inputs in alternating rounds (``mma_sync_ms``:
-   no census shape slower, a request's K1 time at most 0.8x at SD1.5 and
-   0.6x at SDXL 1024²); at each flash shape also K1's tile sweep and the head-group
-   kernel at the JAX package's pack (its ``"wgmma"`` route beside the
-   mma.sync group kernel on the same inputs in alternating rounds: never
-   slower; candidates the main path does not take);
+   its bound; K1 takes the ``"wgmma"`` route at every census shape
+   (``ops/flash_attention.py::route``); at each flash shape also the
+   head-group kernel at the JAX package's pack (its ``"wgmma"`` route, a
+   candidate the main path does not take);
 5. drives the main path at SD1.5's full width with seeded random bf16
    weights: captures the batch-1 and batch-8 buckets (``warmup``: one eager
    run, then the capture, each launching every kernel once per call: the
@@ -272,8 +267,8 @@ from dreamlab_tpu_torch.serving import app as server_app
 from dreamlab_tpu_torch.serving.http import ServerThread
 from dreamlab_tpu_torch.serving.superres_service import (SuperResService, SuperResWorker,
                                                          decode_rgb, load_sr_params)
-from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, compare,
-                                               device_ms, max_err)
+from dreamlab_tpu_torch.scripts.timing import (TOL_BF16, TOL_BF16_P, bf16_check, device_ms,
+                                               max_err)
 from dreamlab_tpu_torch.testing import (CONTROLNET_COND_CHANNELS, SD15_CONTROLNET,
                                         cast_params, cast_tree, random_bundle,
                                         random_controlnet,
@@ -428,9 +423,9 @@ def ptxas_summary(build_log: str) -> list:
     return [{**r, "kernel": names[r["kernel"]]} for r in rows]
 
 
-def sass_tensor_ops(so) -> tuple:
-    """({kernel: HMMA instructions}, {kernel: HGMMA instructions}) in the
-    built library's SASS: mma.sync and wgmma on the tensor cores."""
+def sass_wgmma_ops(so) -> dict:
+    """{kernel: HGMMA instructions} in the built library's SASS: wgmma on
+    the tensor cores."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
@@ -439,20 +434,15 @@ def sass_tensor_ops(so) -> tuple:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = [0, 0]
+            counts[name] = 0
         elif name is not None:
-            counts[name][0] += bool(re.search(r"\bHMMA\b", line))
-            counts[name][1] += bool(re.search(r"\bHGMMA\b", line))
+            counts[name] += bool(re.search(r"\bHGMMA\b", line))
     names = _demangle(counts)
-    return ({names[k]: n[0] for k, n in sorted(counts.items())},
-            {names[k]: n[1] for k, n in sorted(counts.items())})
+    return {names[k]: n for k, n in sorted(counts.items())}
 
 
-# the bf16 flash kernels: {name: the tensor-core instruction each instance must hold}
-TENSOR_CORE_KERNELS = {"flash_mma_kernel": "HMMA", "flash_group_mma_kernel": "HMMA",
-                       "flash_wgmma_kernel": "HGMMA", "flash_group_wgmma_kernel": "HGMMA"}
-# the warp-specialised kernels (a producer warpgroup hands its registers to
-# the consumers with setmaxnreg)
+# the bf16 flash kernels, warp-specialised (a producer warpgroup hands its
+# registers to the consumers with setmaxnreg)
 WGMMA_KERNELS = ("flash_wgmma_kernel", "flash_group_wgmma_kernel")
 
 
@@ -466,21 +456,21 @@ def wgmma_instances() -> list:
 
 
 def check_build(so) -> None:
-    """Registers, spills and tensor-core instructions of every kernel; each
-    bf16 flash kernel's instances hold their tensor-core instruction and
-    spill nothing, and ptxas honoured every setmaxnreg (no C7508) and
-    serialized no wgmma (C7510-C7515: the build still runs, slower), in
-    K1's and the head group's wgmma kernels alike."""
+    """Registers, spills and wgmma instructions of every kernel; each bf16
+    flash kernel's instances hold wgmma instructions and spill nothing, and
+    ptxas honoured every setmaxnreg (no C7508) and serialized no wgmma
+    (C7510-C7515: the build still runs, slower), in K1's and the head
+    group's wgmma kernels alike."""
     build_log = _build.build_log()
     ptxas = ptxas_summary(build_log)
     for row in ptxas:
         log({"ptxas": row})
-    hmma, hgmma = sass_tensor_ops(so)
-    log({"sass_hmma": hmma, "sass_hgmma": hgmma})
-    for kern, op in TENSOR_CORE_KERNELS.items():
-        found = {k: n for k, n in (hgmma if op == "HGMMA" else hmma).items() if kern in k}
+    hgmma = sass_wgmma_ops(so)
+    log({"sass_hgmma": hgmma})
+    for kern in WGMMA_KERNELS:
+        found = {k: n for k, n in hgmma.items() if kern in k}
         expect(len(found) > 0 and all(n > 0 for n in found.values()),
-               f"an instance of {kern} contains no {op}: {found}")
+               f"an instance of {kern} contains no HGMMA: {found}")
         spills = [r for r in ptxas if kern in r["kernel"]
                   and r.get("spill_stores", 0) + r.get("spill_loads", 0) > 0]
         expect(not spills, f"instances of {kern} spill: {spills}")
@@ -540,12 +530,12 @@ def check_gn(x, gamma, beta, groups, silu, errs, what) -> dict:
 
 def check_kernels(errs) -> None:
     for dtype in (torch.bfloat16, torch.float32):
-        # the main path's shapes, masked key edges, d = 20 (40-byte head rows:
-        # element-wise staging) and d = 128 (dynamic shared memory)
+        # the main path's shapes, masked key edges, d = 20 (fp32 only: no
+        # bf16 kernel takes 40-byte head rows) and d = 128
         for b, n, m, h, d in [(1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80),
                               (8, 4096, 4096, 8, 40), (1, 256, 77, 8, 40),
-                              (1, 256, 1000, 8, 80), (1, 256, 300, 4, 20),
-                              (1, 1024, 1024, 2, 128)]:
+                              (1, 256, 1000, 8, 80), (1, 1024, 1024, 2, 128)] + (
+                                  [(1, 256, 300, 4, 20)] if dtype == torch.float32 else []):
             q, k, v = (randn(s, dtype, i) for i, s in enumerate(
                 [(b, n, h, d), (b, m, h, d), (b, m, h, d)]))
             c = check_flash(q, k, v, errs, f"{dtype} {[b, n, m, h, d]}")
@@ -687,32 +677,19 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
             expect(fa.route(q, k, v) == fa.route(qc, kc, vc) == "wgmma",
                    f"census {[b, n, m, h, d]}: routes {fa.route(q, k, v)}, "
                    f"{fa.route(qc, kc, vc)}")
-            # the wgmma kernel beside the mma.sync kernel it took over from, on
-            # the same inputs in alternating rounds
-            ab, _ = compare({"ms": lambda: fa.flash_attention(q, k, v),
-                             "mma_sync_ms": lambda: fa.launch(q, k, v, scale=d ** -0.5,
-                                                              kernel="mma")})
-            t = {**ab, "contiguous_ms": device_ms(lambda: fa.flash_attention(qc, kc, vc)),
+            t = {"ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+                 "contiguous_ms": device_ms(lambda: fa.flash_attention(qc, kc, vc)),
                  "plain_ms": device_ms(lambda: fa.attention_plain(q, k, v, d ** -0.5), 3),
                  "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))}
-            # the sweep's tiles where they are compiled: what the default was chosen from
-            tiles = {f"bq{bq}_bk{bk}": device_ms(lambda bq=bq, bk=bk: fa.launch(
-                q, k, v, scale=d ** -0.5, block_q=bq, block_k=bk))
-                for bq in fa.SWEEP_BLOCK_Q for bk in fa.SWEEP_BLOCK_K} \
-                if d <= fa.SWEEP_MAX_HEAD_DIM else {}
             elt = q.element_size()
             bms, by = bound_ms(4.0 * b * h * n * m * d, elt * (2 * b * n * h * d + 2 * b * m * h * d),
                                dtype)
             log({"time": "flash", "shape": [b, n, m, h, d], "count": count, **t,
-                 "bound_ms": bms, "bound_by": by, "tiles_ms": tiles,
+                 "bound_ms": bms, "bound_by": by,
                  "head_group": time_group(q, k, v), "check": c})
-            expect(t["ms"] <= t["mma_sync_ms"],
-                   f"census {[b, n, m, h, d]}: K1 {t['ms']} ms, slower than the mma.sync "
-                   f"kernel's {t['mma_sync_ms']} ms")
             _accumulate(rows["flash"], t, bms, by, count)
             rows["flash_shapes"].append({"shape": [b, n, m, h, d], "count": count,
                                          "packed_strides": n == m, "ms": t["ms"],
-                                         "mma_sync_ms": t["mma_sync_ms"],
                                          "consumers": fa.wgmma_consumers(n, h, d),
                                          "contiguous_ms": t["contiguous_ms"], "check": c})
             continue
@@ -753,28 +730,13 @@ def time_kernels(seen, dtype, errs, parts: bool = True) -> dict:
     return rows
 
 
-# K1's time a request on the wgmma kernel, at most this share of the mma.sync
-# kernel's on the same inputs in the same run
-K1_SPEEDUP = {"sd15": 0.8, "sdxl": 0.6}
-
-
-def expect_k1_speedup(rows, limit: float, what: str) -> None:
-    r = rows["flash"]
-    log({"k1_per_request": what, "ms": r["ms"], "mma_sync_ms": r["mma_sync_ms"],
-         "share": r["ms"] / r["mma_sync_ms"], "limit": limit, "library_ms": r["library_ms"]})
-    expect(r["ms"] <= limit * r["mma_sync_ms"],
-           f"{what}: K1 {r['ms']} ms a request, above {limit} x the mma.sync kernel's "
-           f"{r['mma_sync_ms']} ms")
-
-
 def time_group(q, k, v) -> dict:
     """The head-group kernel at the JAX package's pack for this shape (a
     candidate for the main path, which runs one head per block): the route
     it takes (the paths' q, k, v views must take "wgmma"), checked against
-    the plain fp32 version, then timed beside the mma.sync group kernel on
-    the same inputs in alternating rounds, which it must not be slower than;
-    {} where pack_geometry gives one head or a group the kernel does not
-    take. Its launches are not counted: the paths launch none."""
+    the plain fp32 version, then timed; {} where pack_geometry gives one
+    head or a group the kernel does not take. Its launches are not counted:
+    the paths launch none."""
     b, n, h, d = q.shape
     pack = fa.pack_geometry(h, d)[0]
     if d > fg.MAX_HEAD_DIM.get(pack, 0):
@@ -785,13 +747,8 @@ def time_group(q, k, v) -> dict:
     want = fa.attention_plain(q.float(), k.float(), v.float(), s)
     c = bf16_check(fg.launch(q, k, v, pack=pack, scale=s), want, TOL_BF16_P)
     expect(c["beyond_rounding"] <= c["limit"], f"flash_group census {[b, n, h, d]}: {c}")
-    ab, _ = compare({"ms": lambda: fg.launch(q, k, v, pack=pack, scale=s),
-                     "mma_sync_ms": lambda: fg.launch(q, k, v, pack=pack, scale=s,
-                                                      kernel="mma")})
-    expect(ab["ms"] <= ab["mma_sync_ms"],
-           f"flash_group census {[b, n, h, d]}: the wgmma group kernel {ab['ms']} ms, slower "
-           f"than the mma.sync one's {ab['mma_sync_ms']} ms")
-    return {"pack": pack, "route": route, **ab, "check": c}
+    return {"pack": pack, "route": route,
+            "ms": device_ms(lambda: fg.launch(q, k, v, pack=pack, scale=s)), "check": c}
 
 
 def _accumulate(row, t, bms, by, count) -> None:
@@ -855,7 +812,7 @@ def counts() -> dict:
     so gn == gn_stats == gn_apply means one launch per fused call. Every K1
     launch since the last reset must have taken the wgmma route, and the
     head-group kernel, which no path runs, must not have launched."""
-    expect(fa.ROUTE_LAUNCHES == {"wgmma": fa.LAUNCHES, "mma": 0, "scalar": 0},
+    expect(fa.ROUTE_LAUNCHES == {"wgmma": fa.LAUNCHES, "scalar": 0},
            f"K1's {fa.LAUNCHES} launches since the reset took the routes {fa.ROUTE_LAUNCHES}")
     expect(fg.LAUNCHES == 0, f"a path launched the head-group kernel {fg.LAUNCHES} times")
     return {"flash": fa.LAUNCHES, "gn": gn.LAUNCHES, "gn_stats": gn.STATS_LAUNCHES,
@@ -1025,21 +982,17 @@ def kernel_times(prof) -> list:
     return sorted(out, reverse=True)
 
 
-# K1's kernel on every served path (csrc/flash_wgmma.cu) and the mma.sync
-# kernel it took over from (csrc/flash_attention.cu), which no path may run
+# K1's kernel on every served path (csrc/flash_wgmma.cu)
 FLASH_KERNEL = "flash_wgmma_kernel"
-MMA_FLASH_KERNEL = "flash_mma_kernel"
 # the probes' head-group kernel on its "wgmma" route (csrc/flash_group_wgmma.cu)
 GROUP_KERNEL = "flash_group_wgmma_kernel"
-PORT_KERNELS = (FLASH_KERNEL, MMA_FLASH_KERNEL, "flash_fwd_kernel", "gn_cluster_kernel",
-                "gn_apply_kernel")
+PORT_KERNELS = (FLASH_KERNEL, "flash_fwd_kernel", "gn_cluster_kernel", "gn_apply_kernel")
 
 
 def census_kernels(flash: int, gn: int) -> dict:
     """The profiler's launches by kernel name that a run of ``flash`` K1 and
-    ``gn`` GroupNorm calls must show: K1 all on FLASH_KERNEL, none on the
-    mma.sync kernel."""
-    return {FLASH_KERNEL: flash, MMA_FLASH_KERNEL: 0, "gn_cluster_kernel": gn}
+    ``gn`` GroupNorm calls must show: K1 all on FLASH_KERNEL."""
+    return {FLASH_KERNEL: flash, "gn_cluster_kernel": gn}
 # cuBLAS's matrix kernels by name (cuBLASLt's nvjet, the xmma/cutlass GEMMs,
 # gemv for one-row products); a conv's implicit GEMM matches too, which
 # the packing A/B's difference cancels (both forwards run the same convs)
@@ -2879,7 +2832,6 @@ def sdxl_phase(errs) -> tuple:
 
     t0 = time.perf_counter()
     rows = time_kernels(seen, torch.bfloat16, errs, parts=False)
-    expect_k1_speedup(rows, K1_SPEEDUP["sdxl"], "SDXL 1024²")
     extremes = check_sdxl_extremes(errs)
     log({"sdxl_timing_s": time.perf_counter() - t0, "per_request_ms": rows, **extremes})
     end_phase("sdxl kernel checks")
@@ -3375,7 +3327,7 @@ def mesh_phase(rows, errs, smi: str) -> tuple:
         expect(r["tp_launches"]["flash"] == 40 and r["tp_launches"]["gn"] == 209,
                f"rank {r['rank']}'s tensor-parallel request launched {r['tp_launches']}")
         for axis in ("dp", "tp"):
-            want = {"wgmma": r[f"{axis}_launches"]["flash"], "mma": 0, "scalar": 0}
+            want = {"wgmma": r[f"{axis}_launches"]["flash"], "scalar": 0}
             expect(r[f"{axis}_routes"] == want,
                    f"rank {r['rank']}'s {axis} K1 launches took the routes {r[f'{axis}_routes']}")
         expect(r["tp_all_reduces"] == MESH_TP_ALL_REDUCES,
@@ -3518,18 +3470,11 @@ def probes(errs) -> tuple:
         expect(not run["failed"], f"{probe}: checks failed {run['failed']}")
     for name in ("flash_4d", "flash_folded", "flash_packed3"):
         expect(launches[name] > 0, f"the probes launched {name} no time")
-    # K4 and K6 ran on the wgmma group kernel, and it beat the mma.sync one
+    # K4 and K6 ran on the wgmma group kernel
     group_routes = launches["flash_group routes (K4 + K6)"]
-    expect(group_routes == {"wgmma": launches["flash_group (K4 + K6)"], "mma": 0, "scalar": 0},
+    expect(group_routes == {"wgmma": launches["flash_group (K4 + K6)"], "scalar": 0},
            f"the probes' head-group launches took the routes {group_routes}")
     t4, hp = runs["ab_transpose_free"], runs["ab_head_packing"]
-    group_ab = [(tag, t["group_ms"], t["group_mma_sync_ms"]) for tag, t in
-                t4.get("shapes", {}).items()]
-    if "packed3_ms" in hp:
-        group_ab.append(("packed3", hp["packed3_ms"], hp["packed3_mma_sync_ms"]))
-    for tag, ms, mma_ms in group_ab:
-        expect(ms <= mma_ms, f"probe {tag}: the wgmma group kernel {ms} ms, slower than the "
-                             f"mma.sync one's {mma_ms} ms")
     end_phase("probes")
 
     lay = runs["ab_attention_layout"]
@@ -3558,34 +3503,27 @@ def probes(errs) -> tuple:
     sources = {
         "flash_4d": ("dreamlab_tpu_torch/csrc/flash_group_wgmma.cu",
                      "scripts/ab_transpose_free.py:46"),
-        "flash_folded": ("dreamlab_tpu_torch/csrc/flash_attention.cu",
+        "flash_folded": ("dreamlab_tpu_torch/csrc/flash_wgmma.cu",
                          "scripts/ab_attention_layout.py:61"),
         "flash_packed3": ("dreamlab_tpu_torch/csrc/flash_group_wgmma.cu",
                           "scripts/ab_head_packing.py:134"),
     }
-    # K5 is K1's kernel on the folded view: the route it took, and the
-    # mma.sync kernel beside it on the same inputs in alternating rounds
+    # K5 is K1's kernel on the folded view: the route it took
     q5, k5, v5 = (x.unsqueeze(2) for x in k5_inputs(bf16, al.LANES))
-    k5_ab, _ = compare({"wgmma": lambda: fa.launch(q5, k5, v5, scale=al.D ** -0.5),
-                        "mma_sync": lambda: fa.launch(q5, k5, v5, scale=al.D ** -0.5,
-                                                      kernel="mma")})
-    k5_route = {"flash_route": fa.route(q5, k5, v5), "mma_sync_ms": k5_ab["mma_sync"],
-                "wgmma_ms_beside_mma_sync": k5_ab["wgmma"]}
+    k5_route = {"flash_route": fa.route(q5, k5, v5)}
+    expect(k5_route["flash_route"] == "wgmma", f"flash_folded: the probe's inputs took {k5_route}")
     del q5, k5, v5
-    # K4 and K6: the route the probe's inputs took, the mma.sync group kernel
-    # and K1 on the same inputs, timed in the probe's own alternating rounds
+    # K4 and K6: the route the probe's inputs took, and K1 on the same
+    # inputs, timed in the probe's own alternating rounds
     group_of = {
         "flash_4d": {"group_route": sorted({t["group_route"] for t in t4["shapes"].values()}),
-                     "mma_sync_ms": sum(t["group_mma_sync_ms"] for t in t4["shapes"].values()),
                      "one_head_ms": sum(t["one_head_ms"] for t in t4["shapes"].values())},
         "flash_packed3": {"group_route": [hp["packed3_route"]],
-                          "mma_sync_ms": hp["packed3_mma_sync_ms"],
                           "one_head_ms": hp["one_head_ms"]},
     }
     for name, g in group_of.items():
         expect(g["group_route"] == ["wgmma"], f"{name}: the probe's inputs took {g['group_route']}")
-        g.update(group_route=g["group_route"][0], group_kernel=GROUP_KERNEL,
-                 source_mma_sync="dreamlab_tpu_torch/csrc/flash_group.cu")
+        g.update(group_route=g["group_route"][0], group_kernel=GROUP_KERNEL)
     entries = []
     for name, (ms, plain_ms, library_ms, (bms, by)) in rows.items():
         entries.append({
@@ -3642,11 +3580,9 @@ def kernel_entries(rows, launches, errs, suffix="",
             "library_ms": r["library_ms"],
             **({"beyond_rounding_limit": limits[name][0],
                 "max_beyond_rounding": limits[name][1]} if name in limits else {}),
-            # K1: the route every launch of the path took (counts() holds it to
-            # wgmma) and the mma.sync kernel's time on the same inputs, same run
-            **({"flash_route": "wgmma", "flash_kernel": FLASH_KERNEL,
-                "source_mma_sync": "dreamlab_tpu_torch/csrc/flash_attention.cu",
-                "mma_sync_ms": r["mma_sync_ms"]} if name == "flash" else {}),
+            # K1: the route every launch of the path took (counts() holds it to wgmma)
+            **({"flash_route": "wgmma", "flash_kernel": FLASH_KERNEL}
+               if name == "flash" else {}),
         })
     return kernels
 
@@ -3692,7 +3628,6 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = time_kernels(seen, torch.bfloat16, errs)
     log({"timing_s": time.perf_counter() - t0, "per_request_ms": rows})
-    expect_k1_speedup(rows, K1_SPEEDUP["sd15"], "SD1.5 512²")
 
     t0 = time.perf_counter()
     result = main_path(worker, per_request)

@@ -1,5 +1,6 @@
-// Shared helpers of the port's hand-written kernels: element conversion and
-// 16-byte vector access for fp32 and bf16 tensors.
+// Shared helpers of the port's hand-written kernels: element conversion,
+// 16-byte vector access for fp32 and bf16 tensors, and the flash kernels'
+// constants.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +9,11 @@
 
 // dtype codes passed from Python (dreamlab_tpu_torch/ops/_build.py::DTYPES)
 enum DlDtype : int { kFloat32 = 0, kBFloat16 = 1 };
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;  // finite mask value, as in the Pallas kernel
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float dl_to_float(float x) { return x; }
 __device__ __forceinline__ float dl_to_float(__nv_bfloat16 x) {

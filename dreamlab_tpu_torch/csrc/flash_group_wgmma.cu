@@ -2,14 +2,12 @@
 // softmax(Q K^T * scale) V where one block owns PACK lane-adjacent heads,
 // with wgmma, TMA and a warp-specialised pipeline.
 //
-// Replaces two Pallas TPU kernels of the layout probes, as
-// csrc/flash_group.cu's flash_group_mma_kernel did before it:
+// Replaces two Pallas TPU kernels of the layout probes for bf16 inputs that
+// TMA can describe (ops/flash_group.py::route says which):
 //   scripts/ab_transpose_free.py::flash_attention_4d (K1's _flash_kernel run
 //     through a 4-D BlockSpec over [B, N, G, L], pack heads per grid step);
 //   scripts/ab_head_packing.py::_packed3_kernel (3 heads per 128-lane block,
 //     launched by flash_attention_packed3).
-// flash_group_mma_kernel stays for the bf16 inputs TMA cannot describe
-// (ops/flash_group.py::route says which).
 //
 // What it computes: q [B, N, H, D], k/v [B, M, H, D] in bf16, read in place
 // through their strides -> o [B, N, H, D] contiguous bf16. Group g is heads
@@ -25,7 +23,7 @@
 // so the bound is arithmetic at 989 TFLOP/s: 0.217 ms for a K4 probe run
 // ([8,4096,6,40] and [2,4096,10,64]), 0.130 ms for K6 ([8,4096,6,40]).
 //
-// The design, against what held flash_group_mma_kernel back:
+// The design, against what held back the mma.sync group kernel it replaced:
 // 1. Ampere instructions (mma.sync, cp.async, ldmatrix, two __syncthreads a
 //    tile run by the computing warps) -> Hopper's: both products on
 //    wgmma.mma_async, P in registers as wgmma's A operand, V through an

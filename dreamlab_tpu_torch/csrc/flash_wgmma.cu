@@ -2,14 +2,13 @@
 // with wgmma, TMA and a warp-specialised pipeline.
 //
 // Replaces the Pallas TPU kernel dreamlab_tpu/ops/flash_attention.py::_flash_kernel
-// (launched by flash_attention() through pl.pallas_call), as csrc/flash_attention.cu's
-// flash_mma_kernel did before it; that kernel stays for the inputs TMA cannot
-// describe (ops/flash_attention.py::route says which).
+// (launched by flash_attention() through pl.pallas_call) for bf16 inputs that
+// TMA can describe; ops/flash_attention.py::route says which, and
+// ops/attention.py sends any other bf16 call to the plain path.
 //
 // What it computes: q [B, N, H, D], k/v [B, M, H, D] in bf16, read in place
 // through their strides (the packed projection's views included: token
-// stride 3*H*D) -> o [B, N, H, D] contiguous bf16. The arithmetic is
-// flash_mma_kernel's: fp32 scores, exp2 with the scale folded into log2(e),
+// stride 3*H*D) -> o [B, N, H, D] contiguous bf16. The arithmetic: fp32 scores, exp2 with the scale folded into log2(e),
 // keys >= M masked with the finite -1e30, the row sum over fp32 p, P rounded
 // to bf16 before the PV product (the Pallas kernel's p.astype(v.dtype)),
 // fp32 accumulation, O / l rounded to bf16 once.
@@ -21,7 +20,7 @@
 // At d <= 64 the exponentials (one MUFU ex2 per score, 16 a clock per SM)
 // take about as long as the two products; that is the next limit.
 //
-// The design, against what held flash_mma_kernel back:
+// The design, against what held back the mma.sync kernel it replaced:
 // 1. Ampere instructions (mma.sync, cp.async, ldmatrix) -> Hopper's. Both
 //    products are wgmma.mma_async: S = Q K^T m64n64k16 with Q and K read
 //    from shared memory (K-major, as stored), O += P V m64nDk16 with P in

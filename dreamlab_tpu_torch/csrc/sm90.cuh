@@ -19,7 +19,27 @@
 
 #include <cuda.h>  // CUtensorMap (types only: the driver is reached through the runtime)
 
-#include "mma.cuh"
+#include "common.cuh"
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two fp32 values as a bf16 pair, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Raise a kernel's dynamic shared-memory limit where it needs more than the
+// default 48 KB. Callers keep the result in a function-local static, so it
+// runs once per kernel instance.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
 
 // ---------------------------------------------------------------------------
 // mbarrier

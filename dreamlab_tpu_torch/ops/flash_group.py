@@ -6,8 +6,8 @@ The kernels replace the Pallas TPU kernels of two layout probes:
 (3 heads per lane block). One block owns ``pack`` lane-adjacent heads and
 reads the group's ``L = pack * d`` contiguous lanes of each token row in
 place; each K/V tile is loaded once and feeds all ``pack`` heads.
-``route(q, k, v, pack)`` picks one kernel before any launch, from the
-inputs' dtype, alignment, strides and head dim:
+``route(q, k, v, pack)`` names the kernel that takes the inputs, from their
+dtype, alignment, strides and head dim, or None:
 
 - ``"wgmma"`` (``csrc/flash_group_wgmma.cu``, ``flash_group_wgmma_kernel``):
   bf16 that TMA can describe, i.e. 16-byte aligned bases, batch, token and
@@ -15,22 +15,21 @@ inputs' dtype, alignment, strides and head dim:
   d <= ``MAX_HEAD_DIM[pack]``. Hopper's wgmma and TMA with a producer warp:
   one TMA box brings a chunk of all ``pack`` heads' K or V tile, and
   consumer warpgroup c computes head c (64 query rows), in the consumer loop
-  of K1's wgmma kernel (``csrc/flash_sm90.cuh``).
-- ``"mma"`` (``csrc/flash_group.cu``, ``flash_group_mma_kernel``): other
-  bf16 inputs (d = 20, odd head dims, unaligned views). ``mma.sync`` on the
-  tensor cores, 64 query rows per head.
-- ``"scalar"`` (``flash_group_fwd_kernel``): fp32, one thread per (query
-  row, head), since the tensor cores would take fp32 as TF32.
+  of K1's wgmma kernel (``csrc/flash_sm90.cuh``). It rounds P to bf16
+  before the PV product, as both Pallas kernels do.
+- ``"scalar"`` (``csrc/flash_group.cu``, ``flash_group_fwd_kernel``): fp32,
+  one thread per (query row, head), since the tensor cores would take fp32
+  as TF32.
+- None for anything else (bf16 at d = 20 or unaligned views): a launch on
+  them raises.
 
-Both bf16 kernels round P to bf16 before the PV product, as both Pallas
-kernels do. The route is a dispatch, not a fallback: a refused or failed
-launch raises and is never run again on another route.
+The route is a dispatch, not a fallback: a refused or failed launch raises
+and is never run again on another kernel.
 
 ``flash_group`` launches the routed kernel for CUDA tensors and raises on
-anything the kernels do not take; for CPU tensors it computes
-``flash_group_plain``. ``launch`` runs a kernel without counting, for
-same-run comparisons. The probe wrappers in ``dreamlab_tpu_torch/scripts``
-count their own launches.
+anything ``route`` refuses; for CPU tensors it computes
+``flash_group_plain``. ``launch`` runs the kernel without counting. The
+probe wrappers in ``dreamlab_tpu_torch/scripts`` count their own launches.
 """
 
 from __future__ import annotations
@@ -43,13 +42,13 @@ import torch
 from . import _build
 from .flash_attention import attention_plain
 
-# the compiled groups: the widest head each pack takes (both bf16 kernels
-# and the fp32 one)
+# the compiled groups: the widest head each pack takes (the bf16 kernel and
+# the fp32 one)
 MAX_HEAD_DIM = {2: 64, 3: 40}
 
 # kernel launches since the last reset, in all and by route
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "scalar": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "scalar": 0}
 ROUTES = tuple(ROUTE_LAUNCHES)
 
 # dl_flash_group: device, q, k, v, o, dtype, pack, b, n, m, h, d, 6 strides, scale, stream
@@ -106,19 +105,19 @@ def _check_cuda(q, k, v) -> None:
                              f"[..., {d}, 1]), got {tuple(x.stride())}")
 
 
-def route(q, k, v, pack: int) -> str:
-    """The kernel that takes these inputs: "wgmma", "mma" or "scalar" (see
+def route(q, k, v, pack: int) -> Optional[str]:
+    """The kernel that takes these inputs: "wgmma", "scalar" or None (see
     the module docstring). A pure function of dtype, group, head dim, base
     alignment and strides; it launches nothing and reads no device. Raises
     on a group the kernels do not take."""
     _check_shapes(q, k, v, pack)
     if q.dtype == torch.float32:
         return "scalar"
-    if q.shape[-1] % 8:
-        return "mma"
+    if q.dtype != torch.bfloat16 or q.shape[-1] % 8:
+        return None
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
-            return "mma"
+            return None
     return "wgmma"
 
 
@@ -154,17 +153,18 @@ def wgmma_instances() -> list:
     return [dict(zip(_INSTANCE_FIELDS, rows[width * i:width * (i + 1)])) for i in range(n)]
 
 
-def _launch(q, k, v, pack: int, scale: float, kernel: Optional[str]):
-    """Run ``kernel`` (None: the one ``route`` picks); return the output and
-    the route that ran."""
+def launch(q, k, v, *, pack: int, scale: float):
+    """Run the kernel ``route`` picks on CUDA tensors [B, N, H, D] x
+    [B, M, H, D]; count nothing. Raises on anything no kernel takes."""
     _check_cuda(q, k, v)
     picked = route(q, k, v, pack)
-    if kernel is not None and kernel != picked and not (
-            kernel == "mma" and picked == "wgmma"):
-        raise ValueError(f"kernel {kernel!r} does not take these inputs (route: {picked!r})")
-    kernel = kernel or picked
-    if kernel == "wgmma":
-        return _launch_wgmma(q, k, v, pack, scale), kernel
+    if picked is None:
+        raise ValueError(
+            f"no kernel takes {q.dtype} q, k, v of shape {tuple(q.shape)} and strides "
+            f"{q.stride()}, {k.stride()}, {v.stride()}: bf16 needs 16-byte aligned bases, "
+            f"strides multiples of 8 and d % 8 == 0")
+    if picked == "wgmma":
+        return _launch_wgmma(q, k, v, pack, scale)
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     fn = _build.kernel("dl_flash_group", _ARGTYPES)
@@ -175,18 +175,7 @@ def _launch(q, k, v, pack: int, scale: float, kernel: Optional[str]):
         float(scale), _build.stream_of(q),
     )
     _build.check(rc, "dl_flash_group")
-    return out, kernel
-
-
-def launch(q, k, v, *, pack: int, scale: float, kernel: Optional[str] = None):
-    """Run a kernel on CUDA tensors [B, N, H, D] x [B, M, H, D]; count nothing.
-
-    ``kernel`` None runs the one ``route`` picks. A same-run A/B may name
-    "mma" for any bf16 input (``chip_smoke.py`` and the probes time the
-    mma.sync kernel beside the wgmma one); "wgmma" only where ``route``
-    gives it. Raises on anything the kernels do not take.
-    """
-    return _launch(q, k, v, pack, scale, kernel)[0]
+    return out
 
 
 def flash_group(q, k, v, *, pack: int, scale: Optional[float] = None):
@@ -194,7 +183,8 @@ def flash_group(q, k, v, *, pack: int, scale: Optional[float] = None):
     block per group of ``pack`` lane-adjacent heads.
 
     CUDA tensors run the kernel ``route`` picks (output in q's dtype,
-    contiguous); CPU tensors run ``flash_group_plain`` and count nothing.
+    contiguous) and raise where it picks none; CPU tensors run
+    ``flash_group_plain`` and count nothing.
     Both check the group geometry.
     """
     global LAUNCHES
@@ -203,7 +193,7 @@ def flash_group(q, k, v, *, pack: int, scale: Optional[float] = None):
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_group_plain(q, k, v, scale)
-    out, ran = _launch(q, k, v, pack, scale, None)
+    out = launch(q, k, v, pack=pack, scale=scale)
     LAUNCHES += 1
-    ROUTE_LAUNCHES[ran] += 1
+    ROUTE_LAUNCHES[route(q, k, v, pack)] += 1
     return out

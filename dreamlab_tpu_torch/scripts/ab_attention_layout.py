@@ -10,8 +10,8 @@ Port of ``scripts/ab_attention_layout.py``, at ``B=8, H=8, N=4096, D=40``:
 
 The TPU probe's kernel was K1's Pallas body at ``pack=1`` on pre-folded
 inputs. On the H100 a layout is a stride argument, so ``kernel_call`` is the
-port's hand-written one-head kernel (``csrc/flash_attention.cu``) launched on
-the ``[G, N, 1, lane]`` view at head width ``lane``; the scale stays the
+port's hand-written one-head kernel (on its route: ``csrc/flash_wgmma.cu`` in
+bf16) launched on the ``[G, N, 1, lane]`` view at head width ``lane``; the scale stays the
 caller's (D^-0.5), not lane^-0.5. PyTorch's SDPA is timed beside them as a
 yardstick only, and the plain version and SDPA again on the folded lane-128
 inputs (the work ``folded`` does).

@@ -1,6 +1,6 @@
-"""A/B: what several heads per block, tile size and lane width cost on the card.
+"""A/B: what several heads per block and lane width cost on the card.
 
-Port of ``scripts/ab_head_packing.py``, all three parts:
+Port of ``scripts/ab_head_packing.py``, in three parts:
 
 1. ``matmul_floors`` — bf16 ``torch.matmul`` at the attention's products:
    ``[4096, K] @ [K, 4096]`` for K in {40, 64, 128} and
@@ -10,14 +10,16 @@ Port of ``scripts/ab_head_packing.py``, all three parts:
    head-group kernel at pack 3 (on the route ``ops/flash_group.py::route``
    picks: ``"wgmma"``, ``csrc/flash_group_wgmma.cu``, for these bf16
    inputs), checked against the plain fp32 version at ``(8, 4096, 6, 40)``
-   and timed beside the mma.sync group kernel it took over from
-   (``csrc/flash_group.cu``) and the port's one-head kernel (H = 6 so that
-   all run the same problem).
-3. The one-head kernel's tile sweep (block_q in {64, 128} x block_k in
-   {16, 32, 64}, bf16, d = 40), then the same kernel at a true d = 128, which
-   says what padding 40 lanes to 128 would cost here. Each instance is
-   checked against the plain fp32 version on its own inputs before any is
-   timed.
+   and timed beside the port's one-head kernel (H = 6 so that both run the
+   same problem).
+3. The one-head kernel at a true d = 128, which says what padding 40 lanes
+   to 128 would cost here. Each variant is checked against the plain fp32
+   version on its own inputs before any is timed.
+
+The TPU probe also sweeps its Pallas kernel's block sizes. The port has no
+such sweep: its one bf16 kernel takes its tiles from
+``ops/flash_attention.py::wgmma_consumers``, which every tile choice leaves
+byte for byte equal.
 
 Times are device time from CUDA events (``scripts/timing.py``), the way
 ``chip_smoke.py`` times. Run on the card:
@@ -77,11 +79,10 @@ def flash_attention_packed3(q, k, v, *, scale: float):
 
 
 def main(iters: int = 10) -> dict:
-    """The matmul floors; then every attention kernel variant (packed3 on its
-    route and on the mma.sync group kernel, the one-head kernel at each tile
-    of the sweep and at d = 128) against the
-    plain fp32 version on its inputs, and their device times beside the plain
-    version and SDPA (a yardstick). Times no attention if a check fails
+    """The matmul floors; then every attention kernel variant (the one-head
+    kernel, packed3 on its route, the one-head kernel at d = 128) against
+    the plain fp32 version on its inputs, and their device times beside the
+    plain version and SDPA (a yardstick). Times no attention if a check fails
     (``failed`` lists it)."""
     require_cuda("ab_head_packing")
     rs = np.random.RandomState(0)
@@ -95,14 +96,7 @@ def main(iters: int = 10) -> dict:
     q8, k8, v8 = (randn(rs, (b, n, h, 128)) for _ in range(3))
     kernels = {"one_head": lambda: fa.flash_attention(q, k, v, scale=scale),
                "packed3": lambda: flash_attention_packed3(q, k, v, scale=scale),
-               "packed3_mma_sync": lambda: fg.launch(q, k, v, pack=3, scale=scale,
-                                                     kernel="mma")}
-    for bq in fa.SWEEP_BLOCK_Q:
-        for bk in fa.SWEEP_BLOCK_K:
-            if (bq, bk) != (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K):
-                kernels[f"bq{bq}_bk{bk}"] = lambda bq=bq, bk=bk: fa.flash_attention(
-                    q, k, v, scale=scale, block_q=bq, block_k=bk)
-    kernels["one_head_d128"] = lambda: fa.flash_attention(q8, k8, v8, scale=scale)
+               "one_head_d128": lambda: fa.flash_attention(q8, k8, v8, scale=scale)}
     ref = fa.attention_plain(q.float(), k.float(), v.float(), scale)
     ref8 = fa.attention_plain(q8.float(), k8.float(), v8.float(), scale)
     # every variant runs on the tensor cores and rounds P, as the Pallas kernels do
@@ -127,12 +121,9 @@ def main(iters: int = 10) -> dict:
               flush=True)
     print(f"  true d=128 / d=40: x{ms['one_head_d128'] / ms['one_head']:.2f} "
           "(what padding 40 lanes to 128 would cost)", flush=True)
-    sweep = {name: t for name, t in ms.items() if name.startswith("bq")}
-    sweep[f"bq{fa.DEFAULT_BLOCK_Q}_bk{fa.DEFAULT_BLOCK_K}"] = ms["one_head"]
     return {"shape": list(SHAPE), "matmul_floors_ms": floors, "checks": errs,
             "failed": [], "one_head_ms": ms["one_head"], "packed3_ms": ms["packed3"],
-            "packed3_route": fg.route(q, k, v, 3), "packed3_mma_sync_ms": ms["packed3_mma_sync"],
-            "tile_sweep_ms": sweep, "plain_ms": ms["plain"], "sdpa_ms": ms["sdpa"],
+            "packed3_route": fg.route(q, k, v, 3), "plain_ms": ms["plain"], "sdpa_ms": ms["sdpa"],
             "one_head_d128_ms": ms["one_head_d128"], "rounds_ms": rounds}
 
 

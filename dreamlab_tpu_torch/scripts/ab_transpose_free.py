@@ -7,8 +7,7 @@ by a transpose; Mosaic's tiling refused the 4-D block. On the H100 a layout
 is a stride: ``flash_attention_4d`` runs the head-group kernel on the
 reshaped tensors in place, with ``pack`` from the JAX package's packing
 rule, on the route ``ops/flash_group.py::route`` picks (``"wgmma"`` for the
-probe's bf16 inputs: ``csrc/flash_group_wgmma.cu``), beside the mma.sync
-group kernel it took over from (``csrc/flash_group.cu``) and the port's
+probe's bf16 inputs: ``csrc/flash_group_wgmma.cu``), beside the port's
 one-head kernel K1 at the same shapes, with the plain version and PyTorch's
 SDPA timed as yardsticks.
 
@@ -46,11 +45,10 @@ def flash_attention_4d(q, k, v, *, scale: float):
 
 
 def main(iters: int = 10) -> dict:
-    """At each shape: the errors of the group kernel (its route), the
-    mma.sync group kernel and the one-head kernel against the plain fp32
-    version, then the device times of the three, the plain version and SDPA
-    (a yardstick) in alternating rounds. Times nothing if a check fails
-    (``failed`` lists it)."""
+    """At each shape: the errors of the group kernel (its route) and the
+    one-head kernel against the plain fp32 version, then the device times of
+    the two, the plain version and SDPA (a yardstick) in alternating rounds.
+    Times nothing if a check fails (``failed`` lists it)."""
     require_cuda("ab_transpose_free")
     rs = np.random.RandomState(0)
     errs, shapes = {}, {}
@@ -62,8 +60,6 @@ def main(iters: int = 10) -> dict:
         route = fg.route(q, k, v, pack)
         checks = {f"{tag}/group": bf16_check(flash_attention_4d(q, k, v, scale=s), ref,
                                              TOL_BF16_P),
-                  f"{tag}/group_mma_sync": bf16_check(
-                      fg.launch(q, k, v, pack=pack, scale=s, kernel="mma"), ref, TOL_BF16_P),
                   f"{tag}/one_head": bf16_check(fa.flash_attention(q, k, v, scale=s), ref,
                                                 TOL_BF16_P)}
         del ref
@@ -77,11 +73,10 @@ def main(iters: int = 10) -> dict:
         ms, rounds = compare({
             "one_head": lambda: fa.flash_attention(q, k, v, scale=s),
             "group": lambda: flash_attention_4d(q, k, v, scale=s),
-            "group_mma_sync": lambda: fg.launch(q, k, v, pack=pack, scale=s, kernel="mma"),
             "plain": lambda: fa.attention_plain(q, k, v, s),
             "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=s)}, iters)
         print(f"{tag}: one head per block {ms['one_head']:.3f} ms | head group in place "
-              f"{ms['group']:.3f} ms ({route}; mma.sync {ms['group_mma_sync']:.3f} ms) | "
+              f"{ms['group']:.3f} ms ({route}) | "
               f"plain {ms['plain']:.3f} ms | sdpa {ms['sdpa']:.3f} ms "
               f"(yardstick) (median of rounds {rounds})", flush=True)
         shapes[tag] = {"shape": [b, n, h, d], "pack": pack, "lanes": lanes, "group_route": route,

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from dreamlab_tpu_torch.ops import _build
+from dreamlab_tpu_torch.ops import attention
 from dreamlab_tpu_torch.ops import flash_attention as fa
 from dreamlab_tpu_torch.ops import flash_group as fg
 from dreamlab_tpu_torch.ops import groupnorm as gn
@@ -64,11 +65,9 @@ def _assert_close(got, want, tol_fp32, tol_bf16):
 def test_build_reports_registers(cuda):
     log = _build.build_log()
     print(log)
-    assert "flash_fwd_kernel" in log and "flash_mma_kernel" in log
-    assert "flash_wgmma_kernel" in log
+    assert "flash_fwd_kernel" in log and "flash_wgmma_kernel" in log
     assert "gn_cluster_kernel" in log and "gn_apply_kernel" in log
-    assert "flash_group_fwd_kernel" in log and "flash_group_mma_kernel" in log
-    assert "flash_group_wgmma_kernel" in log
+    assert "flash_group_fwd_kernel" in log and "flash_group_wgmma_kernel" in log
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -82,9 +81,9 @@ def test_build_reports_registers(cuda):
     (1, 1024, 1024, 8, 80),  # UNet level 2
     (1, 4032, 4032, 10, 64),  # SDXL at 1344x768: ragged query and key tiles
     (1, 1008, 1008, 20, 64),
-    (1, 4096, 4096, 2, 40),  # UNet level 1: d = 40 padded to the mma depth of 48
-    (1, 256, 300, 4, 20),    # 40-byte head rows: staged element by element
-    (2, 130, 77, 3, 7),      # odd head dim, ragged edges
+    (1, 4096, 4096, 2, 40),  # UNet level 1: d = 40 zero-filled to 48 by TMA
+    (1, 256, 300, 4, 20),    # 40-byte head rows: bf16 takes the plain path
+    (2, 130, 77, 3, 7),      # odd head dim, ragged edges: bf16 takes the plain path
     (1, 4096, 4096, 10, 64),  # SDXL at 1024²: level 1
     (2, 1024, 1024, 20, 64),  # SDXL at 1024²: level 2, the cfg mode's doubled batch
     # the SDXL refiner at 1024²: levels 1 and 2, and its 4-layer mid block
@@ -92,17 +91,25 @@ def test_build_reports_registers(cuda):
 ])
 def test_flash_matches_plain(cuda, dtype, b, n, m, h, d):
     """Each launch counts once in all and once on its route: fp32 on the
-    scalar kernel, bf16 at d % 8 == 0 on the wgmma kernel, else mma.sync."""
+    scalar kernel, bf16 at d % 8 == 0 on the wgmma kernel. bf16 no kernel
+    takes raises in the kernel's wrapper, and the dispatch runs it on the
+    plain path, launching nothing."""
     q = _randn((b, n, h, d), dtype, cuda, 0)
     k = _randn((b, m, h, d), dtype, cuda, 1)
     v = _randn((b, m, h, d), dtype, cuda, 2)
-    route = "scalar" if dtype == torch.float32 else "wgmma" if d % 8 == 0 else "mma"
+    route = "scalar" if dtype == torch.float32 else "wgmma" if d % 8 == 0 else None
     assert fa.route(q, k, v) == route
     before, routes = fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)
-    got = fa.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES == before + 1
-    assert fa.ROUTE_LAUNCHES == {**routes, route: routes[route] + 1}
+    if route is None:
+        with pytest.raises(ValueError, match="no kernel"):
+            fa.flash_attention(q, k, v)
+        got = attention.dot_product_attention(q, k, v)
+        assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES) == (before, routes)
+    else:
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before + 1
+        assert fa.ROUTE_LAUNCHES == {**routes, route: routes[route] + 1}
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
     _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
@@ -159,7 +166,7 @@ def test_flash_wgmma_ragged_edges(cuda, b, n, m, h, d):
 def test_a_failed_wgmma_launch_raises_and_runs_nothing_else(cuda, monkeypatch):
     """The route is a dispatch, not a fallback: a launch the wgmma entry
     refuses (here: a tile rule it was not built for) raises, counts nothing
-    and is not run again on the mma.sync kernel."""
+    and is not run again on another kernel."""
     q, k, v = (_randn((1, 256, 4, 64), torch.bfloat16, cuda, i) for i in range(3))
     fa.flash_attention(q, k, v)  # build and bind before the spy
     asked = []
@@ -174,27 +181,6 @@ def test_a_failed_wgmma_launch_raises_and_runs_nothing_else(cuda, monkeypatch):
     assert fa.LAUNCHES == before and fa.ROUTE_LAUNCHES == routes
 
 
-@pytest.mark.parametrize("block_q,block_k", [(64, 16), (64, 32), (64, 64), (128, 16),
-                                             (128, 32), (128, 64)])
-@pytest.mark.parametrize("d", [16, 40])
-def test_flash_tile_sweep_matches_plain(cuda, block_q, block_k, d):
-    b, n, m, h = 1, 300, 77, 2  # ragged query and key edges
-    q, k, v = (_randn(s, torch.bfloat16, cuda, i) for i, s in enumerate(
-        [(b, n, h, d), (b, m, h, d), (b, m, h, d)]))
-    got = fa.flash_attention(q, k, v, block_q=block_q, block_k=block_k)
-    want = fa.attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
-    _assert_close(got, want, None, TOL_BF16_P)
-
-
-def test_flash_tile_sweep_is_bf16_at_narrow_heads_only(cuda):
-    q = torch.zeros((1, 128, 2, 40), device=cuda)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q, block_q=64)
-    q = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q, block_k=32)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,n,m,h,d,pack", [
     (1, 256, 256, 6, 40, 3),
@@ -205,16 +191,24 @@ def test_flash_tile_sweep_is_bf16_at_narrow_heads_only(cuda):
     (1, 256, 300, 8, 40, 2),
     (2, 130, 50, 6, 16, 3),
     (1, 128, 33, 2, 16, 2),
-    (1, 128, 100, 4, 24, 2),   # zero-filled to the mma depth of 48 (fp32: to 40)
-    (1, 256, 300, 4, 20, 2),   # 40-byte head slices: staged element by element
-    (2, 130, 77, 3, 7, 3),     # odd head dim, ragged edges: element by element
+    (1, 128, 100, 4, 24, 2),   # zero-filled to 64 by TMA (fp32: to 40)
+    (1, 256, 300, 4, 20, 2),   # 40-byte head slices: no bf16 kernel
+    (2, 130, 77, 3, 7, 3),     # odd head dim, ragged edges: no bf16 kernel
     (2, 4096, 4096, 10, 64, 2),  # the probes' K4 shape at pack 2
 ])
 def test_flash_group_matches_plain(cuda, dtype, b, n, m, h, d, pack):
+    """Where no kernel takes the inputs (bf16 at d % 8 != 0) the launch
+    raises and counts nothing."""
     q = _randn((b, n, h, d), dtype, cuda, 0)
     k = _randn((b, m, h, d), dtype, cuda, 1)
     v = _randn((b, m, h, d), dtype, cuda, 2)
     before = fg.LAUNCHES
+    if fg.route(q, k, v, pack) is None:
+        assert dtype == torch.bfloat16 and d % 8
+        with pytest.raises(ValueError, match="no kernel"):
+            fg.flash_group(q, k, v, pack=pack)
+        assert fg.LAUNCHES == before
+        return
     got = fg.flash_group(q, k, v, pack=pack)
     torch.cuda.synchronize()
     assert fg.LAUNCHES == before + 1
@@ -300,13 +294,19 @@ def test_flash_group_wgmma_batch_row_equals_its_solo_call(cuda, b, n, h, d, pack
 
 
 def test_flash_group_routes_count_their_launches(cuda):
-    """bf16 TMA cannot describe (d = 20) takes the mma.sync group kernel,
-    fp32 the scalar one; each launch counts on its own route only."""
-    for dtype, d, route in [(torch.bfloat16, 20, "mma"), (torch.float32, 40, "scalar"),
+    """fp32 takes the scalar group kernel, bf16 TMA can describe the wgmma
+    one; each launch counts on its own route only. bf16 TMA cannot describe
+    (d = 20) raises and counts nothing."""
+    for dtype, d, route in [(torch.bfloat16, 20, None), (torch.float32, 40, "scalar"),
                             (torch.bfloat16, 40, "wgmma")]:
         q, k, v = (_randn((1, 256, 4, d), dtype, cuda, i) for i in range(3))
         assert fg.route(q, k, v, 2) == route
         before, routes = fg.LAUNCHES, dict(fg.ROUTE_LAUNCHES)
+        if route is None:
+            with pytest.raises(ValueError, match="no kernel"):
+                fg.flash_group(q, k, v, pack=2)
+            assert (fg.LAUNCHES, fg.ROUTE_LAUNCHES) == (before, routes)
+            continue
         got = fg.flash_group(q, k, v, pack=2)
         assert fg.LAUNCHES == before + 1
         assert fg.ROUTE_LAUNCHES == {**routes, route: routes[route] + 1}
@@ -314,26 +314,11 @@ def test_flash_group_routes_count_their_launches(cuda):
         _assert_close(got, want, TOL[torch.float32], TOL_BF16_P)
 
 
-def test_flash_group_launch_runs_the_mma_sync_kernel_beside_wgmma(cuda):
-    """``launch(kernel="mma")`` runs the mma.sync group kernel on inputs the
-    wgmma route takes (the probes' same-run A/B), counts nothing, and agrees
-    with the plain version; "wgmma" where the route says "mma" raises."""
-    q, k, v = (_randn((2, 512, 6, 40), torch.bfloat16, cuda, i) for i in range(3))
-    before, routes = fg.LAUNCHES, dict(fg.ROUTE_LAUNCHES)
-    got = fg.launch(q, k, v, pack=3, scale=40 ** -0.5, kernel="mma")
-    assert (fg.LAUNCHES, fg.ROUTE_LAUNCHES) == (before, routes)
-    want = fg.flash_group_plain(q.float(), k.float(), v.float(), 40 ** -0.5)
-    _assert_close(got, want, None, TOL_BF16_P)
-    q20 = _randn((1, 128, 4, 20), torch.bfloat16, cuda, 3)
-    with pytest.raises(ValueError, match="route"):
-        fg.launch(q20, q20, q20, pack=2, scale=1.0, kernel="wgmma")
-
-
 def test_a_refused_group_wgmma_launch_raises_and_runs_nothing_else(cuda, monkeypatch):
     """The route is a dispatch, not a fallback: a launch the wgmma entry
     refuses (here: d = 72, past the widest instance, let through the
-    Python check) raises, counts nothing and is not run again on the
-    mma.sync kernel."""
+    Python check) raises, counts nothing and is not run again on another
+    kernel."""
     q, k, v = (_randn((1, 256, 6, 40), torch.bfloat16, cuda, i) for i in range(3))
     fg.flash_group(q, k, v, pack=3)  # build and bind before the spy
     q, k, v = (_randn((1, 256, 6, 72), torch.bfloat16, cuda, i) for i in range(3))
@@ -414,9 +399,21 @@ def test_a_packed_unet_hands_the_kernel_its_projection_views(cuda, monkeypatch):
 
 
 def test_flash_rejects_what_it_does_not_take(cuda):
+    """No kernel takes d = 160, bf16 at d = 20 or an unaligned bf16 base:
+    each raises, and the dispatch runs them on the plain path."""
     q = torch.zeros((1, 128, 2, 160), device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    buf = _randn((256 * 2 * 64 + 8,), torch.bfloat16, cuda, 8)
+    for x in (_randn((1, 256, 2, 20), torch.bfloat16, cuda, 9),
+              buf[1:1 + 256 * 2 * 64].view(1, 256, 2, 64)):
+        assert fa.route(x, x, x) is None
+        with pytest.raises(ValueError, match="no kernel"):
+            fa.flash_attention(x, x, x)
+        before = fa.LAUNCHES
+        torch.testing.assert_close(attention.dot_product_attention(x, x, x),
+                                   fa.attention_plain(x, x, x, x.shape[-1] ** -0.5))
+        assert fa.LAUNCHES == before
     q = torch.zeros((1, 128, 2, 40), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)

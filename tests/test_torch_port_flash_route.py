@@ -1,16 +1,19 @@
-"""The flash kernels' dispatch in the port: K1's ``route`` and its wgmma
-kernel's tile rule, and the head-group kernel's ``route`` (K4 and K6).
+"""The flash kernels' dispatch in the port: K1's ``route``, the attention
+dispatch that asks it, the wgmma kernel's tile rule, and the head-group
+kernel's ``route`` (K4 and K6).
 
-``ops/flash_attention.py::route`` picks the kernel a call launches from the
+``ops/flash_attention.py::route`` names the kernel a call launches from the
 inputs alone: "wgmma" (csrc/flash_wgmma.cu) for bf16 that TMA can describe,
-"mma" (csrc/flash_attention.cu's mma.sync kernel) for other bf16 and the
-probes' tile sweep, "scalar" for fp32. These tests hold the rule at every
-shape the pipelines give K1 (as the packed projection's views and as
-contiguous tensors), at the shapes it sends elsewhere, and the CPU path's
-result to the JAX package's attention on the packed views.
-``ops/flash_group.py::route`` makes the same three-way choice for the
+"scalar" (csrc/flash_attention.cu) for fp32, None for anything else, which
+``ops/attention.py::_flash_supported`` then sends to the plain path. These
+tests hold the rule at every shape the pipelines give K1 (as the packed
+projection's views and as contiguous tensors), at the inputs no kernel
+takes, and the CPU path's result to the JAX package's attention on the
+packed views. ``ops/flash_group.py::route`` makes the same choice for the
 head-group kernels (csrc/flash_group_wgmma.cu, csrc/flash_group.cu) at the
-probes' shapes and the census's head-group shapes.
+probes' shapes and the census's head-group shapes. The tests named
+``..._go_to_mma`` hold inputs that the mma.sync kernels, since removed,
+used to take: no kernel takes them now.
 """
 
 import jax.numpy as jnp
@@ -57,32 +60,72 @@ def test_every_census_shape_takes_the_wgmma_route(layout, b, n, h, d):
 
 @pytest.mark.parametrize("d", [20, 7])
 def test_head_dims_tma_cannot_take_go_to_mma(d):
+    """bf16 at a head dim that is not a multiple of 8: no kernel, the plain path."""
     q, k, v = _contiguous(1, 256, 4, d)
-    assert tfa.route(q, k, v) == "mma"
+    assert tfa.route(q, k, v) is None
+    assert not tattn._flash_supported(q, k, v)
+
+
+def _unaligned():
+    """q an offset view whose base is 2 bytes past a 16-byte boundary, k
+    one 16 bytes in (aligned)."""
+    buf = torch.empty(1 * 256 * 4 * 64 + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    return buf[1:1 + 256 * 4 * 64].view(1, 256, 4, 64), buf[8:8 + 256 * 4 * 64].view(1, 256, 4, 64)
 
 
 def test_an_unaligned_base_goes_to_mma():
-    """An offset view whose base is 2 bytes past a 16-byte boundary."""
-    buf = torch.empty(1 * 256 * 4 * 64 + 8, dtype=torch.bfloat16)
-    assert buf.data_ptr() % 16 == 0
-    q = buf[1:1 + 256 * 4 * 64].view(1, 256, 4, 64)
-    k = buf[8:8 + 256 * 4 * 64].view(1, 256, 4, 64)  # 16 bytes in: aligned
+    """An unaligned base in any of q, k and v: no kernel, the plain path."""
+    q, k = _unaligned()
     assert tfa.route(k, k, k) == "wgmma"
-    assert tfa.route(q, k, k) == tfa.route(k, q, k) == tfa.route(k, k, q) == "mma"
+    assert tfa.route(q, k, k) is tfa.route(k, q, k) is tfa.route(k, k, q) is None
+    assert not any(tattn._flash_supported(*qkv) for qkv in ((q, k, k), (k, q, k), (k, k, q)))
+
+
+def _token_stride_260():
+    buf = torch.empty((1, 256, 4 * 64 + 4), dtype=torch.bfloat16)
+    return buf[:, :, :256].unflatten(2, (4, 64)), torch.empty((1, 256, 4, 64), dtype=torch.bfloat16)
 
 
 def test_strides_that_are_not_multiples_of_8_go_to_mma():
-    buf = torch.empty((1, 256, 4 * 64 + 4), dtype=torch.bfloat16)  # token stride 260
-    q = buf[:, :, :256].unflatten(2, (4, 64))
+    """A token stride of 260 elements: no kernel, the plain path."""
+    q, k = _token_stride_260()
     assert q.stride(1) == 260
-    k = torch.empty((1, 256, 4, 64), dtype=torch.bfloat16)
-    assert tfa.route(q, k, k) == "mma"
+    assert tfa.route(q, k, k) is None
+    assert not tattn._flash_supported(q, k, k)
 
 
-@pytest.mark.parametrize("block_q,block_k", [(64, 0), (0, 32), (128, 64)])
-def test_the_tile_sweep_goes_to_mma(block_q, block_k):
-    q, k, v = _packed(1, 4096, 8, 40)
-    assert tfa.route(q, k, v, block_q, block_k) == "mma"
+def _cross_attention():
+    q, _, _ = _contiguous(1, 4096, 8, 40)
+    k, v, _ = _contiguous(1, 77, 8, 40)
+    return q, k, v
+
+
+@pytest.mark.parametrize("qkv,takes", [
+    *(pytest.param(lambda layout=layout, s=s: layout(*s), True,
+                   id=f"{layout.__name__[1:]}-{'-'.join(map(str, s))}")
+      for s in CENSUS for layout in (_packed, _contiguous)),
+    pytest.param(lambda: _contiguous(1, 256, 4, 20), False, id="d20"),
+    pytest.param(lambda: _contiguous(1, 256, 4, 7), False, id="d7"),
+    pytest.param(lambda: (lambda q, k: (q, k, k))(*_unaligned()), False, id="unaligned-base"),
+    pytest.param(lambda: (lambda q, k: (q, k, k))(*_token_stride_260()), False,
+                 id="token-stride-260"),
+    pytest.param(lambda: _contiguous(1, 256, 8, 160), False, id="d160"),
+    pytest.param(_cross_attention, False, id="77-keys"),
+])
+def test_the_dispatch_takes_the_kernel_exactly_where_route_gives_one(qkv, takes):
+    """One rule for the kernel choice: ``_flash_supported`` (shapes, dtype,
+    strides and alignment; the device is its caller's check) holds where
+    ``route`` names a kernel and both sequences have at least 256 tokens,
+    and nowhere else. Every census shape takes it, in both layouts; bf16
+    that no kernel takes and d = 160 do not, nor do 77 keys, which a
+    kernel would take."""
+    q, k, v = qkv()
+    assert tattn._flash_supported(q, k, v) is takes
+    long = q.shape[1] >= 256 and k.shape[1] >= 256
+    assert takes == (long and tfa.route(q, k, v) is not None)
+    if takes:
+        assert tfa.route(q, k, v) == "wgmma"
 
 
 @pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 256, 4, 20)])
@@ -188,27 +231,28 @@ def test_every_group_shape_takes_the_wgmma_group_route(layout, b, n, h, d, pack)
 
 
 def test_a_group_token_stride_tma_cannot_take_goes_to_mma():
-    """Token stride 6 * 40 + 4 = 244 elements: 488 bytes, not a multiple of 16."""
+    """Token stride 6 * 40 + 4 = 244 elements: 488 bytes, not a multiple of
+    16. No kernel takes it."""
     buf = torch.empty((1, 256, 6 * 40 + 4), dtype=torch.bfloat16)
     q = buf[:, :, :240].unflatten(2, (6, 40))
     assert q.stride() == (256 * 244, 244, 40, 1)
     k = torch.empty((1, 256, 6, 40), dtype=torch.bfloat16)
     assert tfg.route(k, k, k, 3) == "wgmma"
-    assert tfg.route(q, k, k, 3) == tfg.route(k, q, k, 3) == tfg.route(k, k, q, 3) == "mma"
+    assert tfg.route(q, k, k, 3) is tfg.route(k, q, k, 3) is tfg.route(k, k, q, 3) is None
 
 
 def test_an_unaligned_group_base_goes_to_mma():
-    buf = torch.empty(256 * 4 * 64 + 8, dtype=torch.bfloat16)
-    q = buf[1:1 + 256 * 4 * 64].view(1, 256, 4, 64)
-    k = buf[8:8 + 256 * 4 * 64].view(1, 256, 4, 64)  # 16 bytes in: aligned
+    """No kernel takes an unaligned base."""
+    q, k = _unaligned()
     assert tfg.route(k, k, k, 2) == "wgmma"
-    assert tfg.route(q, k, k, 2) == "mma"
+    assert tfg.route(q, k, k, 2) is None
 
 
 @pytest.mark.parametrize("d,pack", [(20, 2), (7, 3), (36, 3)])
 def test_group_head_dims_tma_cannot_take_go_to_mma(d, pack):
+    """No kernel takes bf16 at a head dim that is not a multiple of 8."""
     q, k, v = _contiguous(1, 256, 6, d)
-    assert tfg.route(q, k, v, pack) == "mma"
+    assert tfg.route(q, k, v, pack) is None
 
 
 @pytest.mark.parametrize("b,n,h,d,pack", [(8, 4096, 6, 40, 3), (1, 256, 4, 20, 2)])

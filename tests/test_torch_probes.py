@@ -185,7 +185,7 @@ def test_kernel_call_rejects_a_lane_width_it_was_not_given():
 
 
 # ---------------------------------------------------------------------------
-# the group kernel's module, pack_geometry and the one-head kernel's tiles
+# the group kernel's module and pack_geometry
 # ---------------------------------------------------------------------------
 
 
@@ -216,21 +216,6 @@ def test_pack_geometry_matches_jax():
     for h in range(1, 21):
         for d in (8, 16, 40, 64, 80, 96, 128):
             assert tfa.pack_geometry(h, d) == _pack_geometry(h, d), (h, d)
-
-
-@pytest.mark.parametrize("block_q,block_k", [(64, 16), (64, 64), (128, 32), (128, 64)])
-def test_flash_tiles_give_the_default_output_on_cpu(block_q, block_k):
-    q, k, v = _torch(*_qkv(3, 1, 256, 256, 2, 40))
-    want = tfa.flash_attention(q, k, v)
-    got = tfa.flash_attention(q, k, v, block_q=block_q, block_k=block_k)
-    assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("block_q,block_k", [(256, 0), (0, 128), (32, 32)])
-def test_flash_rejects_tiles_outside_the_sweep(block_q, block_k):
-    q = torch.zeros((1, 128, 2, 40))
-    with pytest.raises(ValueError):
-        tfa.flash_attention(q, q, q, block_q=block_q, block_k=block_k)
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +367,7 @@ def test_group_limit_is_the_pallas_kernels_arithmetic(jax_4d, jax_packing, kerne
 ])
 def test_probe_limit_catches_a_faulty_kernel_at_n4096(fault, arith):
     """Each fault fails its arithmetic's limit by a wide margin: ten times
-    TOL_BF16 in fp32, twice TOL_BF16_P with P rounded to bf16 (the mma.sync
+    TOL_BF16 in fp32, twice TOL_BF16_P with P rounded to bf16 (the Pallas
     kernel's arithmetic and the wgmma kernel's, at its key tile)."""
     q, k, v, ref = _n4096()
     limit, margin = ((t_timing.TOL_BF16, 10) if arith == "fp32"
